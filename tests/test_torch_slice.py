@@ -1,7 +1,7 @@
 """The whole detection slice of the port vs the JAX `UninextDETR`, on the
 CPU: forward + `postprocess_detection` at a small size, the weight bridge's
 round trip through `convert_checkpoint`, and the port's independence from
-JAX.
+JAX and the JAX package.
 
 Config: `tiny_test_config()` with the small ViT backbone of
 tests/test_model.py (embed 32, 2 blocks, block 1 global with its rel-pos
@@ -18,8 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import detection_inputs, perturb, tiny_vit_config
-from uninext_tpu.engine.convert import convert_checkpoint, jax_tree_to_numpy
+from tests.torch_port_common import (detection_inputs, detection_targets,
+                                     jax_train_init, perturb, tiny_vit_config)
+from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
 from uninext_tpu.models.postprocess import postprocess_detection as jax_post
 from uninext_tpu_torch.engine.convert import load_jax_params
@@ -34,8 +35,9 @@ def pair():
     cfg = tiny_vit_config()
     inputs = detection_inputs(0)
     jm = JaxDETR(cfg)
-    params = jax.jit(lambda r: jm.init(r, *inputs))(jax.random.PRNGKey(0))
-    params = perturb(jax_tree_to_numpy(params))
+    # initialised through the training path, so the tree also holds the DN
+    # label encoder (`dn_resizer`), which the port's model has
+    params = perturb(jax_train_init(jm, inputs, detection_targets(0)))
     model = build_model(cfg, "cpu", seed=0)
     load_jax_params(model, params)
     return cfg, inputs, jm, params, model
@@ -93,20 +95,27 @@ def test_bridge_round_trip_through_convert_checkpoint(pair):
 
 
 def test_port_runs_without_jax():
-    """Importing the port and serving a request leaves jax and flax out of
-    sys.modules (the H100 machine runs the port without them)."""
+    """Importing the port, serving a request and taking a train step leave
+    jax, flax and the JAX package (`uninext_tpu`, `uninext_tpu.*`) out of
+    sys.modules: the H100 machine runs the port without them."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         import torch
         import uninext_tpu_torch
-        from uninext_tpu.config import BackboneConfig, tiny_test_config
+        from uninext_tpu_torch.config import BackboneConfig, tiny_test_config
+        from uninext_tpu_torch.data.coco_categories import COCO_CATEGORIES
+        from uninext_tpu_torch.data.prompts import create_label_token_map
+        from uninext_tpu_torch.data.tokenizer import BertTokenizer
+        from uninext_tpu_torch.engine.train import build_train_state, train_step
         from uninext_tpu_torch.models.detr import build_model
         from uninext_tpu_torch.models.postprocess import postprocess_detection
         import dataclasses
         cfg = dataclasses.replace(tiny_test_config(), backbone=BackboneConfig(
             name="vit_huge", vit_embed_dim=32, vit_depth=2, vit_num_heads=2,
             vit_window_size=4, vit_global_blocks=(1,), out_channels=(16, 32, 32)))
+        p_ids, p_mask, cmap = create_label_token_map(COCO_CATEGORIES[:3],
+                                                     BertTokenizer(), 16)
         model = build_model(cfg, "cpu", seed=3)
         rng = np.random.RandomState(1)
         images = torch.from_numpy(rng.randn(2, 64, 96, 3).astype(np.float32))
@@ -120,7 +129,23 @@ def test_port_runs_without_jax():
             post = postprocess_detection(out, torch.eye(16, dtype=torch.bool)[:5])
         assert torch.isfinite(out["pred_logits"]).all()
         assert post["boxes"].shape == (2, 100, 4)
-        bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "flax"))
+        state = build_train_state(cfg, "cpu", seed=3)
+        G = cfg.data.max_insts                 # targets padded to max_insts
+        boxes = torch.zeros(2, G, 4)
+        boxes[:, 0] = torch.tensor([0.5, 0.5, 0.2, 0.3])
+        valid = torch.zeros(2, G, dtype=torch.bool)
+        valid[:, 0] = True
+        pmap = torch.zeros(2, G, 16, dtype=torch.bool)
+        pmap[:, 0] = torch.from_numpy(cmap[0])
+        targets = {"boxes": boxes, "valid": valid, "positive_map": pmap}
+        metrics = train_step(state, {"images": images, "img_mask": img_mask,
+                                     "image_sizes": sizes,
+                                     "text_ids": torch.from_numpy(p_ids).long()[None].expand(2, 16),
+                                     "text_mask": torch.from_numpy(p_mask)[None].expand(2, 16),
+                                     "targets": targets})
+        assert torch.isfinite(metrics["total_loss"])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "flax", "uninext_tpu"))
         print("JAX_MODULES", bad)
     """)
     env = dict(os.environ)

@@ -10,7 +10,7 @@ import dataclasses
 
 import numpy as np
 
-from uninext_tpu.config import BackboneConfig, tiny_test_config
+from uninext_tpu_torch.config import BackboneConfig, tiny_test_config
 
 
 def tiny_vit_config():
@@ -54,3 +54,38 @@ def perturb(params, seed=1, scale=0.05):
         return x + rng.randn(*x.shape).astype(np.float32) * scale
 
     return jax.tree_util.tree_map_with_path(one, params)
+
+
+def detection_targets(seed=0, B=2, G=20, T=16, n=(3, 8)):
+    """Synthetic targets padded to G: per image n[0]..n[1]-1 valid boxes
+    (cxcywh inside the image), each with one or two positive prompt tokens
+    among the first 10. Returns numpy boxes (B, G, 4), valid (B, G),
+    positive_map (B, G, T)."""
+    rng = np.random.RandomState(seed)
+    boxes = np.zeros((B, G, 4), np.float32)
+    valid = np.zeros((B, G), bool)
+    pm = np.zeros((B, G, T), bool)
+    for b in range(B):
+        k = rng.randint(*n)
+        boxes[b, :k, :2] = rng.uniform(0.25, 0.75, (k, 2))
+        boxes[b, :k, 2:] = rng.uniform(0.05, 0.4, (k, 2))
+        valid[b, :k] = True
+        for i in range(k):
+            t0 = rng.randint(1, 9)
+            pm[b, i, t0:t0 + 1 + rng.randint(2)] = True
+    return boxes, valid, pm
+
+
+def jax_train_init(jax_model, inputs, targets, seed=0):
+    """Parameters of the JAX model initialised through its training path
+    (so the DN label encoder `dn_resizer` exists), as a tree of numpy
+    arrays."""
+    import jax
+
+    boxes, valid, pm = targets
+    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm, "has_masks": False}
+    key = jax.random.PRNGKey(seed)
+    params = jax.jit(lambda r: jax_model.init(
+        {"params": r, "dn": jax.random.fold_in(r, 1)}, *inputs,
+        targets=tgt, train=True))(key)
+    return jax.tree.map(np.asarray, params)

@@ -8,6 +8,11 @@
 //   out[b,q,h,:] = sum_k softmax_k(scale * q.k + bh[q, k / W] + bw[q, k % W]) v[b,k,h,:]
 //   bh[q,i] = q . Rh[y(q), i, :],   bw[q,j] = q . Rw[x(q), j, :]   (UNSCALED q)
 //
+// With a non-null `lse` it also writes each row's logsumexp
+// lse[b,h,q] = max + log(sum) of the biased scores, fp32 (B, nh, S): the
+// backward kernels (rel_pos_flash_attn_bwd.cu) recompute P = exp(s - lse)
+// from it instead of storing any attention-sized tensor.
+//
 // Design: one block per (batch*window, head, 64-query tile), 256 threads as
 // a 16 x 16 grid; each thread owns 4 query rows and 4 key columns of a
 // 64 x 64 score tile and 4 rows x ceil(hd/16) output columns. The block
@@ -36,11 +41,13 @@ constexpr int NT = 256;       // threads per block (16 x 16)
 constexpr int MAX_HD = 128;   // head_dim limit
 constexpr int CPT = MAX_HD / 16;  // output columns per thread at MAX_HD
 
-template <typename T>
+// WITH_LSE: write the per-row logsumexp (training); the serving build of the
+// kernel has no trace of it.
+template <typename T, bool WITH_LSE>
 __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ rh, const T* __restrict__ rw, T* __restrict__ out,
-    int H, int W, int nh, int hd, long long sb, long long ss, long long sh,
+    float* __restrict__ lse, int H, int W, int nh, int hd, long long sb, long long ss, long long sh,
     float scale) {
   extern __shared__ float smem[];
   const int S = H * W;
@@ -184,6 +191,7 @@ __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
     const int s = q0 + ty * 4 + i;
     if (s >= S) continue;
     const float inv = 1.f / l_run[i];
+    if (WITH_LSE && tx == 0) lse[(b * nh + h) * S + s] = m_run[i] + logf(l_run[i]);
     T* o = out + ((b * S + s) * nh + h) * hd;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
@@ -193,22 +201,22 @@ __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
   }
 }
 
-template <typename T>
+template <typename T, bool WITH_LSE>
 int launch(const void* q, const void* k, const void* v, const void* rh,
-           const void* rw, void* out, int B, int H, int W, int nh, int hd,
+           const void* rw, void* out, float* lse, int B, int H, int W, int nh, int hd,
            long long sb, long long ss, long long sh, float scale,
            cudaStream_t stream) {
   const int S = H * W;
   const size_t smem = sizeof(float) *
       (size_t)(BQ * (hd + 1) + BK * (hd + 1) + BK * hd + BQ * (BK + 1) + BQ * (H + W));
   cudaError_t err = cudaFuncSetAttribute(
-      rel_pos_flash_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rel_pos_flash_attn_kernel<T, WITH_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, nh, B);
-  rel_pos_flash_attn_kernel<T><<<grid, NT, smem, stream>>>(
+  rel_pos_flash_attn_kernel<T, WITH_LSE><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out,
-      H, W, nh, hd, sb, ss, sh, scale);
+      lse, H, W, nh, hd, sb, ss, sh, scale);
   return (int)cudaGetLastError();
 }
 
@@ -216,18 +224,23 @@ int launch(const void* q, const void* k, const void* v, const void* rh,
 
 // q, k, v: (B, H*W, nh, hd) with element strides (sb, ss, sh, 1), shared by
 // the three; rh: (H, H, hd); rw: (W, W, hd); out: (B, H*W, nh*hd)
-// contiguous. All of dtype `dtype` (UNINEXT_F32 or UNINEXT_BF16).
+// contiguous. All of dtype `dtype` (UNINEXT_F32 or UNINEXT_BF16). `lse`:
+// null, or (B, nh, H*W) fp32 for the per-row logsumexp.
 extern "C" int rel_pos_flash_attn(const void* q, const void* k, const void* v,
                                   const void* rh, const void* rw, void* out,
-                                  int B, int H, int W, int nh, int hd,
+                                  float* lse, int B, int H, int W, int nh, int hd,
                                   long long sb, long long ss, long long sh,
                                   float scale, int dtype, void* stream) {
   if (hd > MAX_HD || hd < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == UNINEXT_F32)
-    return launch<float>(q, k, v, rh, rw, out, B, H, W, nh, hd, sb, ss, sh, scale, st);
+    return lse ? launch<float, true>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss, sh, scale, st)
+               : launch<float, false>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss, sh, scale, st);
   if (dtype == UNINEXT_BF16)
-    return launch<__nv_bfloat16>(q, k, v, rh, rw, out, B, H, W, nh, hd, sb, ss, sh, scale, st);
+    return lse ? launch<__nv_bfloat16, true>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss,
+                                             sh, scale, st)
+               : launch<__nv_bfloat16, false>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss,
+                                              sh, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -17,12 +17,14 @@ Two places need care:
     `fpn1.0` in the reference; its bias must be four equal copies, which
     is what a ConvTranspose2d bias can hold.
 
-Every JAX leaf must be consumed and every port parameter filled; anything
-else raises. The input is a tree of numpy arrays (or anything
+The DN label encoder `dn_resizer` (training only) becomes `detr.resizer.*`,
+as in the reference checkpoint. Every JAX leaf must be consumed and every
+port parameter filled; anything else raises. The input is a tree of numpy arrays (or anything
 `np.asarray` takes), so this module needs no JAX.
 """
 from __future__ import annotations
 
+import re
 from typing import Callable, Dict
 
 import numpy as np
@@ -30,6 +32,7 @@ import torch
 
 ROOT = "detr.detr."
 BERT_ROOT = "text_encoder.body.model."
+DN_ROOT = "detr.resizer."        # the DN label encoder (JAX `dn_resizer`)
 
 
 class _Leaves:
@@ -234,6 +237,41 @@ def fill_model(sd, key, lv, path):
     fill_bert(sd, key + BERT_ROOT, lv, _j(path, "bert"))
     fill_transformer(sd, key + ROOT + "transformer.", lv, _j(path, "transformer"))
     fill_heads(sd, key + ROOT, lv, path)
+    _dense(sd, key + DN_ROOT + "fc.", lv, _j(path, "dn_resizer/fc"))
+    _norm(sd, key + DN_ROOT + "layer_norm.", lv, _j(path, "dn_resizer/ln"))
+
+
+# port-key patterns -> the JAX module each is filled from (by `fill_model`
+# and the fill functions it calls); the rest of the key keeps the port's
+# names. First match wins.
+_MODULE_PATHS = tuple((re.compile(p), r) for p, r in (
+    (r"detr\.detr\.backbone\.0\.backbone\.(.*)", r"backbone/\1"),
+    (r"text_encoder\.body\.model\.(.*)", r"bert/\1"),
+    (r"detr\.resizer\.(.*)", r"dn_resizer/\1"),
+    (r"detr\.detr\.transformer\.encoder\.vl_layers\.(\d+)\.b_attn\.(.*)",
+     r"transformer/vl_layer_\1/\2"),
+    (r"detr\.detr\.transformer\.encoder\.layers\.(\d+)\.(.*)",
+     r"transformer/encoder_layer_\1/\2"),
+    (r"detr\.detr\.transformer\.decoder\.layers\.(\d+)\.(.*)",
+     r"transformer/decoder_layer_\1/\2"),
+    (r"detr\.detr\.transformer\.(.*)", r"transformer/\1"),
+    (r"detr\.detr\.input_proj\.(\d+)\.0\.(.*)", r"input_proj_\1/\2"),
+    (r"detr\.detr\.input_proj\.(\d+)\.1\.(.*)", r"input_gn_\1/\2"),
+    (r"detr\.detr\.(.*)", r"\1"),
+))
+
+
+def jax_module_path(port_key: str) -> str:
+    """The JAX module path a port parameter of `UninextDETR` is filled from,
+    e.g. `transformer/vl_layer_0/attn/v_proj/weight` for
+    `detr.detr.transformer.encoder.vl_layers.0.b_attn.attn.v_proj.weight`
+    (module names as the JAX tree's, the leaf as the port's). Enough for
+    path rules such as the optimizer's `classify_param`."""
+    for pattern, repl in _MODULE_PATHS:
+        m = pattern.fullmatch(port_key)
+        if m:
+            return m.expand(repl).replace(".", "/")
+    raise KeyError(f"no JAX module for port parameter {port_key!r}")
 
 
 def state_dict_from_jax(params, fill: Callable = fill_model

@@ -13,7 +13,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uninext_tpu.config import LanguageConfig
+from ..config import LanguageConfig
 
 from .layers import LayerNorm, Linear
 

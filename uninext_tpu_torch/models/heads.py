@@ -7,7 +7,7 @@ import math
 import torch
 from torch import nn
 
-from uninext_tpu.config import TransformerConfig
+from ..config import TransformerConfig
 
 from .layers import Linear
 

@@ -1,5 +1,8 @@
 """Deformable transformer with VL early fusion, two-stage proposals and the
-DINO decoder, inference only, mirroring `uninext_tpu/models/transformer.py`.
+DINO decoder, mirroring `uninext_tpu/models/transformer.py`. Training adds
+the denoising (DN) queries ahead of the matching queries, the DN
+self-attention mask, and activation checkpointing of the encoder layers
+(the JAX package's `remat_encoder`).
 
 The encoder is a plain loop of layers (VLFuse before the first
 `num_vl_layers`); the JAX package's scan-stacked encoder was an XLA compile
@@ -14,15 +17,16 @@ here sets it explicitly.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from uninext_tpu.config import LanguageConfig, TransformerConfig
+from ..config import LanguageConfig, TransformerConfig
 
-from ..utils.misc import agg_lang_feat, inverse_sigmoid, stable_topk_indices
+from ..utils.misc import (agg_lang_feat, checkpointed, inverse_sigmoid,
+                          stable_topk_indices)
 from .layers import (MLP, FeatureResizer, LayerNorm, Linear, MSDeformAttn,
                      MultiHeadAttention, get_sine_pos_embed)
 from .vl_fusion import VLFuse
@@ -180,10 +184,16 @@ class UninextTransformer(nn.Module):
     def forward(self, srcs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor],
                 pos_embeds: Sequence[torch.Tensor], lang_hidden: torch.Tensor,
                 lang_mask: torch.Tensor, enc_class_head: Callable,
-                enc_bbox_head: Callable, bbox_heads: Sequence[Callable]
-                ) -> Dict[str, torch.Tensor]:
+                enc_bbox_head: Callable, bbox_heads: Sequence[Callable],
+                dn_tgt: Optional[torch.Tensor] = None,
+                dn_refpoints_unact: Optional[torch.Tensor] = None,
+                attn_mask: Optional[torch.Tensor] = None,
+                remat_encoder: bool = False) -> Dict[str, torch.Tensor]:
         """srcs/masks/pos_embeds per level (B, H, W, C) / (B, H, W) True=pad /
-        (B, H, W, C); lang_hidden (B, T, C_l); lang_mask (B, T) 1=valid."""
+        (B, H, W, C); lang_hidden (B, T, C_l); lang_mask (B, T) 1=valid.
+        Training: dn_tgt (B, Ndn, C) and dn_refpoints_unact (B, Ndn, 4) go
+        ahead of the matching queries, `attn_mask` (Ndn+Q, Ndn+Q) True =
+        blocked; `remat_encoder` checkpoints each encoder layer."""
         c = self.cfg
         B = srcs[0].shape[0]
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -200,8 +210,9 @@ class UninextTransformer(nn.Module):
             if i < len(self.encoder.vl_layers):
                 visual, lang_hidden = self.encoder.vl_layers[i](
                     visual, lang_hidden, lang_mask)
-            visual = layer(visual, pos_flatten, enc_ref, spatial_shapes,
-                           mask_flatten)
+            args = (visual, pos_flatten, enc_ref, spatial_shapes, mask_flatten)
+            visual = (checkpointed(layer, *args)
+                      if remat_encoder and torch.is_grad_enabled() else layer(*args))
         memory = visual
 
         lang_pool = agg_lang_feat(lang_hidden, lang_mask)
@@ -220,10 +231,15 @@ class UninextTransformer(nn.Module):
             topk_idx = topk_idx.repeat(1, reps)[:, :c.num_queries]
         topk_coords_unact = torch.gather(
             enc_coord_unact, 1, topk_idx[..., None].expand(-1, -1, 4))
-        reference_points = topk_coords_unact.sigmoid()
+        reference_points = topk_coords_unact.detach().sigmoid()
+        if dn_refpoints_unact is not None:
+            reference_points = torch.cat([dn_refpoints_unact.sigmoid(),
+                                          reference_points], 1)
         init_reference = reference_points
 
         tgt = self.tgt_embed.weight[None].expand(B, -1, -1)
+        if dn_tgt is not None:
+            tgt = torch.cat([dn_tgt, tgt], 1)
         # decoupled target, still tgt for both tasks: ref_feat rides along
         # with zero weight (reference :243-255)
         tgt = (tgt + 0.0 * ref_feat).to(self.compute_dtype)
@@ -236,10 +252,10 @@ class UninextTransformer(nn.Module):
             query_pos = self.decoder.ref_point_head(query_sine).to(
                 self.compute_dtype)
             tgt = layer(tgt, query_pos, ref_input, memory, spatial_shapes,
-                        mask_flatten)
+                        mask_flatten, attn_mask)
             delta = bbox_heads[lid](tgt).float()
             new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
-            reference_points = new_ref
+            reference_points = new_ref.detach()
             intermediate.append(tgt)
             intermediate_refs.append(new_ref)   # look-forward-twice
 

@@ -5,7 +5,13 @@ Every block's attention goes through `flash_rel_pos_attention`, the wrapper
 of kernel A (`csrc/rel_pos_flash_attn.cu`): on a CUDA tensor both the global
 blocks (the whole grid) and the windowed blocks (14 x 14 windows as a batch)
 launch it. The JAX package's `H*W >= 2048` flash gate and its q-row
-chunking were decisions for the TPU and are not carried over.
+chunking were decisions for the TPU and are not carried over. Under
+autograd the wrapper is a `torch.autograd.Function` whose backward is
+kernel A-bwd (`csrc/rel_pos_flash_attn_bwd.cu`).
+
+Training adds stochastic depth (masks drawn before each block from an
+explicit generator) and per-block activation checkpointing
+(`torch.utils.checkpoint`, the JAX package's `nn.remat` of each block).
 
 Parameter names follow the reference D2ViT (`backbone/vit.py:233-432`):
 patch_embed.proj, pos_embed, blocks.{i}.{norm1,attn.{qkv,proj,rel_pos_h,
@@ -17,11 +23,13 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops import _build
+from ..utils.misc import checkpointed, recomputing
 from .layers import Conv2d, LayerNorm, Linear
 
 
@@ -88,55 +96,163 @@ def rel_pos_attention_plain(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
     return out.reshape(B, H, W, nh * hd).to(q.dtype)
 
 
-def flash_rel_pos_attention(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
-    """Kernel A on CUDA tensors, `rel_pos_attention_plain` on CPU tensors.
-    Shapes as `rel_pos_attention_plain`. q, k and v must share their
-    strides with a unit last stride (the slices of one qkv tensor do)."""
-    dev = q.device
-    if dev.type == "cpu":
-        return rel_pos_attention_plain(q, k, v, Rh, Rw, scale)
-    if dev.type != "cuda":
-        raise ValueError(f"flash_rel_pos_attention: unsupported device {dev}")
+def _check_attention_inputs(q, k, v, Rh, Rw):
     B, H, W, nh, hd = q.shape
     S = H * W
-    dtype = _build.dtype_code(q)
     q3 = q.reshape(B, S, nh, hd)             # a view for the slices of qkv
     for name, t, shape in (("k", k, (B, S, nh, hd)), ("v", v, (B, S, nh, hd)),
                            ("Rh", Rh, (H, H, hd)), ("Rw", Rw, (W, W, hd))):
         if tuple(t.shape) != shape:
             raise ValueError(f"flash_rel_pos_attention: {name} shape "
                              f"{tuple(t.shape)} != {shape}")
-        if t.dtype != q.dtype or t.device != dev:
+        if t.dtype != q.dtype or t.device != q.device:
             raise ValueError(f"flash_rel_pos_attention: {name} must be "
-                             f"{q.dtype} on {dev}")
+                             f"{q.dtype} on {q.device}")
     if not (q3.stride() == k.stride() == v.stride()) or q3.stride(-1) != 1:
         raise ValueError("flash_rel_pos_attention: q, k, v need equal strides "
                          "and a unit last stride")
     if not (Rh.is_contiguous() and Rw.is_contiguous()):
         raise ValueError("flash_rel_pos_attention: Rh, Rw must be contiguous")
-    lib = _build.library("rel_pos_flash_attn")
-    lib.rel_pos_flash_attn_smem_bytes.argtypes = [_build.I] * 3
-    lib.rel_pos_flash_attn_smem_bytes.restype = _build.LL
-    smem = lib.rel_pos_flash_attn_smem_bytes(H, W, hd)
+    return q3
+
+
+def _smem_check(lib, fn_name: str, H: int, W: int, hd: int, dev) -> None:
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [_build.I] * 3
+    fn.restype = _build.LL
+    smem = fn(H, W, hd)
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if hd > 128 or smem > limit:
-        raise ValueError(f"flash_rel_pos_attention: hd={hd}, grid {H}x{W} needs "
-                         f"{smem} B of shared memory (limit {limit}, hd <= 128)")
+        raise ValueError(f"{fn_name}: hd={hd}, grid {H}x{W} needs {smem} B of "
+                         f"shared memory (limit {limit}, hd <= 128)")
+
+
+def rel_pos_flash_attn_fwd(q, k, v, Rh, Rw, scale: float, with_lse: bool = False):
+    """Launch kernel A on CUDA tensors (no autograd). Returns the output
+    (B, H, W, nh*hd) and, with `with_lse`, the per-row logsumexp (B, nh, S)
+    fp32 (else None)."""
+    B, H, W, nh, hd = q.shape
+    dev = q.device
+    dtype = _build.dtype_code(q)
+    q3 = _check_attention_inputs(q, k, v, Rh, Rw)
+    lib = _build.library("rel_pos_flash_attn")
+    _smem_check(lib, "rel_pos_flash_attn_smem_bytes", H, W, hd, dev)
     out = torch.empty((B, H, W, nh * hd), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, nh, H * W), dtype=torch.float32, device=dev)
+           if with_lse else None)
     sb, ss, sh, _ = q3.stride()
     fn = lib.rel_pos_flash_attn
-    fn.argtypes = ([_build.P] * 6 + [_build.I] * 5 + [_build.LL] * 3
+    fn.argtypes = ([_build.P] * 7 + [_build.I] * 5 + [_build.LL] * 3
                    + [_build.F, _build.I, _build.P])
     fn.restype = _build.I
     rc = fn(q3.data_ptr(), k.data_ptr(), v.data_ptr(), Rh.data_ptr(),
-            Rw.data_ptr(), out.data_ptr(), B, H, W, nh, hd, sb, ss, sh,
-            float(scale), dtype, _build.stream_of(q))
+            Rw.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
+            B, H, W, nh, hd, sb, ss, sh, float(scale), dtype, _build.stream_of(q))
     _build.check(lib, rc, "rel_pos_flash_attn")
     flash_rel_pos_attention.launches += 1
-    return out
+    if recomputing():
+        flash_rel_pos_attention.recompute_launches += 1
+    return out, lse
+
+
+def rel_pos_flash_attn_bwd(q, k, v, Rh, Rw, scale: float, out, lse, dout):
+    """Launch kernel A-bwd on CUDA tensors: the gradients of
+    `rel_pos_flash_attn_fwd` for the output cotangent `dout`. The two
+    products of the bias, bh = q.Rh and bw = q.Rw, are formed here (fp32
+    einsums) for the kernels, and the chain rule through them is taken here
+    from the kernels' dbh and dbw. Returns (dq, dk, dv, dRh, dRw) in the
+    input dtype."""
+    B, H, W, nh, hd = q.shape
+    S = H * W
+    dev = q.device
+    dtype = _build.dtype_code(q)
+    q3 = _check_attention_inputs(q, k, v, Rh, Rw)
+    lib = _build.library("rel_pos_flash_attn_bwd")
+    _smem_check(lib, "rel_pos_flash_attn_bwd_smem_bytes", H, W, hd, dev)
+    qf = q.float()
+    bh = torch.einsum("byxhd,yid->bhyxi", qf, Rh.float()).reshape(B, nh, S, H)
+    bw = torch.einsum("byxhd,xjd->bhyxj", qf, Rw.float()).reshape(B, nh, S, W)
+    dout4 = dout.reshape(B, S, nh, hd).to(q.dtype).contiguous()
+    dsum = (dout4.float() * out.reshape(B, S, nh, hd).float()).sum(-1)
+    dsum = dsum.transpose(1, 2).contiguous()                # (B, nh, S)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dq = torch.empty((B, S, nh, hd), **f32)
+    dk = torch.empty((B, S, nh, hd), **f32)
+    dv = torch.empty((B, S, nh, hd), **f32)
+    dbh = torch.empty((B, nh, S, H), **f32)
+    dbw = torch.empty((B, nh, S, W), **f32)
+    sb, ss, sh, _ = q3.stride()
+    fn = lib.rel_pos_flash_attn_bwd
+    fn.argtypes = ([_build.P] * 13 + [_build.I] * 5 + [_build.LL] * 3
+                   + [_build.F, _build.I, _build.P])
+    fn.restype = _build.I
+    rc = fn(q3.data_ptr(), k.data_ptr(), v.data_ptr(), dout4.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), bh.data_ptr(), bw.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
+            dbw.data_ptr(), B, H, W, nh, hd, sb, ss, sh, float(scale), dtype,
+            _build.stream_of(q))
+    _build.check(lib, rc, "rel_pos_flash_attn_bwd")
+    rel_pos_flash_attn_bwd.launches += 1
+    dbh = dbh.reshape(B, nh, H, W, H)
+    dbw = dbw.reshape(B, nh, H, W, W)
+    dq = (dq.reshape(B, H, W, nh, hd)
+          + torch.einsum("bhyxi,yid->byxhd", dbh, Rh.float())
+          + torch.einsum("bhyxj,xjd->byxhd", dbw, Rw.float()))
+    dRh = torch.einsum("bhyxi,byxhd->yid", dbh, qf)
+    dRw = torch.einsum("bhyxj,byxhd->xjd", dbw, qf)
+    dt = q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt), dRh.to(dt), dRw.to(dt)
+
+
+class _RelPosFlashAttn(torch.autograd.Function):
+    """Kernel A forward (saving each row's logsumexp), kernel A-bwd
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, Rh, Rw, scale):
+        out, lse = rel_pos_flash_attn_fwd(q, k, v, Rh, Rw, scale, with_lse=True)
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, Rh, Rw, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, Rh, Rw, out, lse = ctx.saved_tensors
+        grads = rel_pos_flash_attn_bwd(q, k, v, Rh, Rw, ctx.scale, out, lse, dout)
+        return (*grads, None)
+
+
+def flash_rel_pos_attention(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
+    """Kernel A on CUDA tensors, differentiable (its backward is kernel
+    A-bwd); `rel_pos_attention_plain`, differentiable by autograd, on CPU
+    tensors. Shapes as `rel_pos_attention_plain`. q, k and v must share
+    their strides with a unit last stride (the slices of one qkv tensor do).
+    `launches` counts kernel A's launches; `recompute_launches` those of
+    them made while a checkpointed block is recomputed for the backward."""
+    dev = q.device
+    if dev.type == "cpu":
+        return rel_pos_attention_plain(q, k, v, Rh, Rw, scale)
+    if dev.type != "cuda":
+        raise ValueError(f"flash_rel_pos_attention: unsupported device {dev}")
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (q, k, v, Rh, Rw)):
+        return rel_pos_flash_attn_fwd(q, k, v, Rh, Rw, scale)[0]
+    return _RelPosFlashAttn.apply(q, k, v, Rh, Rw, scale)
 
 
 flash_rel_pos_attention.launches = 0
+flash_rel_pos_attention.recompute_launches = 0
+rel_pos_flash_attn_bwd.launches = 0
+
+def drop_path_masks(batch: int, rate: float, generator: Optional[torch.Generator],
+                    device) -> torch.Tensor:
+    """Per-sample stochastic-depth scales (reference timm DropPath,
+    `uninext_tpu/models/vit.py:109`): (2, B) of 0 or 1/keep, one row for
+    the attention branch and one for the MLP branch of a block. Drawn before
+    the block runs, so a checkpointed block's recompute sees the same masks."""
+    keep = 1.0 - rate
+    u = torch.rand((2, batch), generator=generator, device=device)
+    return (u < keep).float() / keep
 
 
 class Attention(nn.Module):
@@ -188,8 +304,8 @@ class _Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN ViT block; `window_size` 0 = global attention. Inference only
-    (no drop-path)."""
+    """Pre-LN ViT block; `window_size` 0 = global attention. `drop` is None
+    or the (2, B) stochastic-depth scales of `drop_path_masks`."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  rel_pos_size: int, dtype: torch.dtype = torch.float32):
@@ -200,7 +316,8 @@ class Block(nn.Module):
         self.norm2 = LayerNorm(dim, eps=1e-6)
         self.mlp = _Mlp(dim, dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         B, H, W, C = x.shape
         shortcut = x
         x = self.norm1(x)
@@ -217,8 +334,15 @@ class Block(nn.Module):
         if ws > 0:
             x = x.reshape(B, Hp // ws, Wp // ws, ws, ws, C)
             x = x.permute(0, 1, 3, 2, 4, 5).reshape(B, Hp, Wp, C)[:, :H, :W]
-        x = shortcut + x
-        return x + self.mlp(self.norm2(x))
+        x = shortcut + _scaled(x, drop, 0)
+        return x + _scaled(self.mlp(self.norm2(x)), drop, 1)
+
+
+def _scaled(x: torch.Tensor, drop: Optional[torch.Tensor], branch: int):
+    """x times its sample's drop-path scale (none without masks)."""
+    if drop is None:
+        return x
+    return x * drop[branch].to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
 
 
 class _PatchEmbed(nn.Module):
@@ -243,9 +367,13 @@ class ViT(nn.Module):
                  depth: int = 32, num_heads: int = 16, window_size: int = 14,
                  global_blocks: Optional[Sequence[int]] = None,
                  pretrain_img_size: int = 224, rel_pos_init_size: int = 64,
-                 in_channels: int = 3, dtype: torch.dtype = torch.float32):
+                 in_channels: int = 3, dtype: torch.dtype = torch.float32,
+                 drop_path_rate: float = 0.0, use_checkpoint: bool = False):
         super().__init__()
         self.compute_dtype = dtype
+        self.drop_path_rates = [float(r) for r in
+                                np.linspace(0, drop_path_rate, depth)]
+        self.use_checkpoint = use_checkpoint
         self.patch_embed = _PatchEmbed(in_channels, embed_dim, patch_size, dtype)
         n = pretrain_img_size // patch_size
         self.pos_embed = nn.Parameter(torch.empty(1, n * n + 1, embed_dim))
@@ -265,13 +393,21 @@ class ViT(nn.Module):
         with torch.no_grad():
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
+        """`train` turns on stochastic depth (masks from `generator`) and,
+        with `use_checkpoint` and autograd on, per-block activation
+        checkpointing (the reference's MODEL.VIT.USE_CHECKPOINT)."""
         dt = self.compute_dtype
         x = self.patch_embed(x.to(dt))
         B, H, W, C = x.shape
         x = x + interp_abs_pos(self.pos_embed, H, W).to(dt)
-        for blk in self.blocks:
-            x = blk(x)
+        remat = train and self.use_checkpoint and torch.is_grad_enabled()
+        for blk, rate in zip(self.blocks, self.drop_path_rates):
+            drop = (drop_path_masks(B, rate, generator, x.device)
+                    if train and rate > 0 else None)
+            x = checkpointed(blk, x, drop) if remat else blk(x, drop)
         up = self.fpn1[0]
         res3 = F.conv_transpose2d(x.permute(0, 3, 1, 2), up.weight.to(dt),
                                   up.bias.to(dt), stride=2)

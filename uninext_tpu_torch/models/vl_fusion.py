@@ -9,7 +9,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from uninext_tpu.config import LanguageConfig, TransformerConfig
+from ..config import LanguageConfig, TransformerConfig
 
 from .layers import LayerNorm, Linear
 

@@ -35,6 +35,7 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # arithmetic must round op by op as the CPU does: no fused multiply-adds.
 KERNELS: Dict[str, Tuple[str, ...]] = {
     "rel_pos_flash_attn": (),
+    "rel_pos_flash_attn_bwd": (),
     "ms_deform_attn": (),
     "nms": ("-fmad=false",),
 }
@@ -66,22 +67,50 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile `csrc/<name>.cu` unless the library for its current sources
-    exists. Returns the library's path."""
+def _start_build(name: str):
+    """Start `nvcc` for `csrc/<name>.cu` unless its library exists. Returns
+    (library path, running process or None, command, temporary output)."""
     out = library_path(name)
     if out.exists():
-        return out
+        return out, None, None, None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *_COMMON_FLAGS, *KERNELS[name], "-I", str(CSRC),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return out, proc, cmd, tmp
+
+
+def _finish_build(name: str, out: Path, proc, cmd, tmp) -> Path:
+    if proc is None:
+        return out
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+                           f"{stdout}\n{stderr}")
     os.replace(tmp, out)        # atomic: concurrent builders never see half a file
     return out
+
+
+def build(name: str) -> Path:
+    """Compile `csrc/<name>.cu` unless the library for its current sources
+    exists. Returns the library's path."""
+    return _finish_build(name, *_start_build(name))
+
+
+def build_all() -> None:
+    """Build every library at once: one `nvcc` per source, all started
+    together, then wait for each."""
+    started = {name: _start_build(name) for name in KERNELS}
+    try:
+        for name, job in started.items():
+            _finish_build(name, *job)
+    finally:                    # on a failed build, stop the others' nvcc too
+        for _, proc, _, _ in started.values():
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 @functools.cache

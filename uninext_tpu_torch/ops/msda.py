@@ -1,4 +1,5 @@
-"""Multi-scale deformable attention forward (kernel B, `csrc/ms_deform_attn.cu`).
+"""Multi-scale deformable attention (kernel B and its backward B-bwd, both
+in `csrc/ms_deform_attn.cu`).
 
 Semantics of `uninext_tpu/ops/msda.py:ms_deform_attn`: for every (query,
 head, level, point), bilinearly sample the level's value map at a location
@@ -19,6 +20,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.misc import recomputing
 from . import _build
 
 
@@ -47,20 +49,22 @@ def ms_deform_attn_plain(value: torch.Tensor,
     return out.to(value.dtype)
 
 
-def ms_deform_attn(value: torch.Tensor,
-                   spatial_shapes: Sequence[Tuple[int, int]],
-                   sampling_locations: torch.Tensor,
-                   attention_weights: torch.Tensor) -> torch.Tensor:
-    """Kernel B on a CUDA tensor, the plain version on a CPU tensor."""
+def _levels_table(spatial_shapes, S: int, L: int) -> torch.Tensor:
+    """Host int32 (L, 3) table of (H_l, W_l, start_l), passed by value."""
+    if L != len(spatial_shapes) or S != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(f"ms_deform_attn: spatial shapes {spatial_shapes} do not "
+                         f"match value length {S} and {L} levels")
+    rows, start = [], 0
+    for h, w in spatial_shapes:
+        rows.append((h, w, start))
+        start += h * w
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def _check_inputs(value, sampling_locations, attention_weights):
     dev = value.device
-    if dev.type == "cpu":
-        return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
-                                    attention_weights)
-    if dev.type != "cuda":
-        raise ValueError(f"ms_deform_attn: unsupported device {dev}")
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
-    dtype = _build.dtype_code(value)
     for name, t, shape in (
             ("sampling_locations", sampling_locations, (B, Lq, M, L, P, 2)),
             ("attention_weights", attention_weights, (B, Lq, M, L, P))):
@@ -72,15 +76,19 @@ def ms_deform_attn(value: torch.Tensor,
             raise ValueError(f"ms_deform_attn: {name} must be contiguous on {dev}")
     if not value.is_contiguous():
         raise ValueError("ms_deform_attn: value must be contiguous")
-    if L != len(spatial_shapes) or S != sum(h * w for h, w in spatial_shapes):
-        raise ValueError(f"ms_deform_attn: spatial shapes {spatial_shapes} do not "
-                         f"match value length {S} and {L} levels")
-    rows, start = [], 0
-    for h, w in spatial_shapes:
-        rows.append((h, w, start))
-        start += h * w
-    levels = torch.tensor(rows, dtype=torch.int32)    # host table, passed by value
-    out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=dev)
+
+
+def ms_deform_attn_kernel(value: torch.Tensor,
+                          spatial_shapes: Sequence[Tuple[int, int]],
+                          sampling_locations: torch.Tensor,
+                          attention_weights: torch.Tensor) -> torch.Tensor:
+    """Launch kernel B on CUDA tensors (no autograd)."""
+    _check_inputs(value, sampling_locations, attention_weights)
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    dtype = _build.dtype_code(value)
+    levels = _levels_table(spatial_shapes, S, L)
+    out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
     lib = _build.library("ms_deform_attn")
     fn = lib.ms_deform_attn_fwd
     fn.argtypes = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
@@ -91,7 +99,83 @@ def ms_deform_attn(value: torch.Tensor,
             dtype, _build.stream_of(value))
     _build.check(lib, rc, "ms_deform_attn_fwd")
     ms_deform_attn.launches += 1
+    if recomputing():
+        ms_deform_attn.recompute_launches += 1
     return out
 
 
+def ms_deform_attn_bwd(value: torch.Tensor,
+                       spatial_shapes: Sequence[Tuple[int, int]],
+                       sampling_locations: torch.Tensor,
+                       attention_weights: torch.Tensor, dout: torch.Tensor):
+    """Launch kernel B-bwd on CUDA tensors. Returns (dvalue in the value
+    dtype, dloc fp32, datt fp32). dvalue is summed with fp32 atomics, so its
+    last bits vary from run to run."""
+    _check_inputs(value, sampling_locations, attention_weights)
+    B, S, M, D = value.shape
+    _, Lq, _, L, P, _ = sampling_locations.shape
+    dtype = _build.dtype_code(value)
+    levels = _levels_table(spatial_shapes, S, L)
+    dout = dout.to(value.dtype).contiguous()
+    if tuple(dout.shape) != (B, Lq, M * D):
+        raise ValueError(f"ms_deform_attn_bwd: dout shape {tuple(dout.shape)}")
+    dev = value.device
+    dvalue = torch.zeros((B, S, M, D), dtype=torch.float32, device=dev)
+    dloc = torch.empty((B, Lq, M, L, P, 2), dtype=torch.float32, device=dev)
+    datt = torch.empty((B, Lq, M, L, P), dtype=torch.float32, device=dev)
+    lib = _build.library("ms_deform_attn")
+    fn = lib.ms_deform_attn_bwd
+    fn.argtypes = [_build.P] * 8 + [_build.I] * 8 + [_build.P]
+    fn.restype = _build.I
+    rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
+            attention_weights.data_ptr(), dout.data_ptr(), dvalue.data_ptr(),
+            dloc.data_ptr(), datt.data_ptr(), ctypes.c_void_p(levels.data_ptr()),
+            B, S, Lq, M, D, L, P, dtype, _build.stream_of(value))
+    _build.check(lib, rc, "ms_deform_attn_bwd")
+    ms_deform_attn_bwd.launches += 1
+    return dvalue.to(value.dtype), dloc, datt
+
+
+class _MSDeformAttn(torch.autograd.Function):
+    """Kernel B forward, kernel B-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, sampling_locations, attention_weights)
+        return ms_deform_attn_kernel(value, spatial_shapes, sampling_locations,
+                                     attention_weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        value, loc, att = ctx.saved_tensors
+        dvalue, dloc, datt = ms_deform_attn_bwd(value, ctx.spatial_shapes, loc,
+                                                att, dout)
+        return dvalue, None, dloc, datt
+
+
+def ms_deform_attn(value: torch.Tensor,
+                   spatial_shapes: Sequence[Tuple[int, int]],
+                   sampling_locations: torch.Tensor,
+                   attention_weights: torch.Tensor) -> torch.Tensor:
+    """Kernel B on CUDA tensors (differentiable: its backward is kernel
+    B-bwd), the plain version (differentiable by autograd) on CPU tensors.
+    `launches` counts kernel B's launches; `recompute_launches` those of
+    them made while a checkpointed layer is recomputed for the backward."""
+    dev = value.device
+    if dev.type == "cpu":
+        return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,
+                                    attention_weights)
+    if dev.type != "cuda":
+        raise ValueError(f"ms_deform_attn: unsupported device {dev}")
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (value, sampling_locations, attention_weights)):
+        return ms_deform_attn_kernel(value, spatial_shapes, sampling_locations,
+                                     attention_weights)
+    return _MSDeformAttn.apply(value, tuple(spatial_shapes), sampling_locations,
+                               attention_weights)
+
+
 ms_deform_attn.launches = 0
+ms_deform_attn.recompute_launches = 0
+ms_deform_attn_bwd.launches = 0

@@ -1,4 +1,5 @@
-"""Box utilities, mirroring `uninext_tpu/utils/box_ops.py`.
+"""Box utilities, mirroring `uninext_tpu/utils/box_ops.py` (the set the
+losses and matchers need).
 
 `box_iou` keeps the JAX package's fp32 expression term for term: the NMS
 kernel (`csrc/nms.cu`) and its plain version compare IoU against the
@@ -32,3 +33,44 @@ def box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor):
     union = area1[..., :, None] + area2[..., None, :] - inter
     iou = inter / union.clamp(min=1e-9)
     return iou, union
+
+
+def box_xyxy_to_cxcywh(b: torch.Tensor) -> torch.Tensor:
+    x0, y0, x1, y1 = b.unbind(-1)
+    return torch.stack([(x0 + x1) / 2, (y0 + y1) / 2, x1 - x0, y1 - y0], dim=-1)
+
+
+def generalized_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Pairwise GIoU of xyxy boxes: [..., N, 4] x [..., M, 4] -> [..., N, M].
+    No assertion on degenerate boxes; padded rows are masked by the caller."""
+    iou, union = box_iou(boxes1, boxes2)
+    lt = torch.minimum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.maximum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt).clamp(min=0)
+    area = wh[..., 0] * wh[..., 1]
+    return iou - (area - union) / area.clamp(min=1e-9)
+
+
+def _paired_inter_union(boxes1: torch.Tensor, boxes2: torch.Tensor):
+    lt = torch.maximum(boxes1[..., :2], boxes2[..., :2])
+    rb = torch.minimum(boxes1[..., 2:], boxes2[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    return inter, box_area(boxes1) + box_area(boxes2) - inter
+
+
+def elementwise_box_iou(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Paired IoU of xyxy boxes: [..., 4] x [..., 4] -> [...]."""
+    inter, union = _paired_inter_union(boxes1, boxes2)
+    return inter / union.clamp(min=1e-9)
+
+
+def elementwise_giou_loss(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
+    """Paired GIoU loss (1 - GIoU): [..., 4] x [..., 4] -> [...]."""
+    inter, union = _paired_inter_union(boxes1, boxes2)
+    iou = inter / union.clamp(min=1e-9)
+    lt_c = torch.minimum(boxes1[..., :2], boxes2[..., :2])
+    rb_c = torch.maximum(boxes1[..., 2:], boxes2[..., 2:])
+    wh_c = (rb_c - lt_c).clamp(min=0)
+    area_c = wh_c[..., 0] * wh_c[..., 1]
+    return 1.0 - (iou - (area_c - union) / area_c.clamp(min=1e-9))

@@ -1,7 +1,11 @@
 """Small helpers shared across the model, mirroring `uninext_tpu/utils/misc.py`."""
 from __future__ import annotations
 
+import threading
+from typing import Callable
+
 import torch
+import torch.utils.checkpoint
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -34,3 +38,31 @@ def host_constant(values, dtype: torch.dtype, device: torch.device
     if device.type == "cpu":
         return t
     return t.pin_memory().to(device, non_blocking=True)
+
+
+_RECOMPUTE = threading.local()
+
+
+def recomputing() -> bool:
+    """True while a checkpointed function is recomputed for the backward."""
+    return getattr(_RECOMPUTE, "depth", 0) > 0
+
+
+def checkpointed(fn: Callable, *args):
+    """`fn(*args)` under `torch.utils.checkpoint` (non-reentrant): its
+    activations are dropped after the forward and recomputed in the
+    backward. The recompute runs with `recomputing()` true, so the kernel
+    wrappers can count those launches apart."""
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*a)
+        _RECOMPUTE.depth = getattr(_RECOMPUTE, "depth", 0) + 1
+        try:
+            return fn(*a)
+        finally:
+            _RECOMPUTE.depth -= 1
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
