@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's ViT-H detection paths once on one CUDA card:
-serving, and the training step.
+serving and the training step, and the two MSDA labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -15,6 +15,12 @@ nonzero):
      where one exists, one PyTorch library call's time;
   3. backward kernels: A-bwd and B-bwd against autograd through the plain
      versions at the training shapes, fp32 and bf16, timed the same way;
+  3b. labs: the labs' kernels in `csrc/gather_fold.cu` (the fold, TPU
+     kernel B of `tools/msda_v6_lab.py`, and the gather probes C0-C2)
+     against their plain versions at the tools' shapes, fp32 and bf16, timed the same way; then the lab path with its
+     launches counted: `tools/msda_v6_lab.py` (parity, and v6 against the
+     port's MSDA kernel at the encoder shape in fp32 and bf16) and the
+     three probes of `tools/gather_probe.py`;
   4. correctness: a small model with the same weights on the card (kernels)
      and on the CPU (plain versions): the serving outputs, then one train
      step's losses and every gradient;
@@ -381,6 +387,130 @@ def phase_backward_kernels():
     return rec
 
 
+def _bag_index(rows, S, device):
+    """embedding_bag's index of the same sum over a table viewed as
+    (rows * 4, D): bag i holds rows[i, s] * 4 + c for s < S, c < 4."""
+    import torch
+    c = torch.arange(4, device=device)
+    return (rows.long()[..., None] * 4 + c).reshape(-1, S * 4)
+
+
+def _library_bag(table, bags, weights):
+    """ms of one `F.embedding_bag(mode="sum")` over `table` (rows of D),
+    with per-sample weights (cast to the table's dtype) where given."""
+    import torch.nn.functional as F
+    from uninext_tpu_torch.tools import event_ms
+    if weights is not None:
+        weights = weights.to(table.dtype)
+    return event_ms(lambda: F.embedding_bag(bags, table, per_sample_weights=weights,
+                                            mode="sum"), 20)
+
+
+def phase_labs():
+    """The labs' kernels vs their plain versions at the tools' shapes (fp32
+    and bf16), then the lab path with its launches counted. Returns the
+    kernels' records (bf16 times) and the lab path's launches. Times are
+    CUDA graph replays (`tools.event_ms`): the probes' kernels run for less
+    time than the host takes to launch them."""
+    import torch
+    from uninext_tpu_torch.ops import gather_fold as gf
+    from uninext_tpu_torch.tools import event_ms, gather_probe, msda_v6_lab as lab
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    # both versions return fp32 from the same inputs: only the order of fp32
+    # sums (and fused multiply-adds) of at most 64 terms below 10 differs
+    tol = 5e-5
+    rec = {}
+
+    # kernel B at the lab's encoder shape: L*P = 16 rows of 4D per column,
+    # B*M*Lq_pad = 163840 columns
+    S_lp, D = lab.L * lab.P, lab.D
+    N = lab.pad_q_fused(lab.B, lab.M, lab.LQ)[2]
+    rows32 = torch.randn(S_lp, N, 4 * D, device=dev, generator=g)
+    w32 = torch.rand(S_lp, N, 4, device=dev, generator=g)
+    r = rec["msda_fold"] = {"max_abs_err": 0.0}
+    for dt in (torch.float32, torch.bfloat16):
+        rows, w = rows32.to(dt), w32.to(dt)
+        err = _check(f"msda_fold {dt}", gf.msda_fold(rows, w), gf.msda_fold_plain(rows, w), tol)
+        ms = event_ms(lambda: gf.msda_fold(rows, w), 20)
+        pms = event_ms(lambda: gf.msda_fold_plain(rows, w), 5)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        print(f"[lab B] msda_fold S={S_lp} N={N} D={D} {str(dt)[6:]}: max_abs_err="
+              f"{err:.3g} (tol {tol}) kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    # rows and w are bf16 here, as msda_v6 makes them
+    n_idx = (torch.arange(S_lp, device=dev)[None] * N
+             + torch.arange(N, device=dev)[:, None])             # (N, S): row s*N + n
+    bags = _bag_index(n_idx, S_lp, dev)
+    lib = _library_bag(rows.view(-1, D), bags, w.permute(1, 0, 2).reshape(N, S_lp * 4))
+    del n_idx, bags
+    b_ms, b_by = _bound(rows.numel() * 2 + w.numel() * 2 + N * D * 4,
+                        2 * S_lp * 4 * D * N, "fp32")
+    r.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+             shape=f"S={S_lp} N={N} D={D} bf16")
+    print(f"[lab B] bound {b_ms:.4f} ms ({b_by}); library embedding_bag(sum, "
+          f"per_sample_weights) in bf16: {lib:.4f} ms")
+    del rows32, w32, rows, w
+    torch.cuda.empty_cache()
+
+    # kernels C0-C2 at the probes' shapes (bf16 tables, as the probes)
+    probes = (("gather_rowsum_scalar", "C0", gf.gather_rowsum_scalar, gather_probe.R),
+              ("gather_rowsum_vec", "C1", gf.gather_rowsum_vec, gather_probe.R),
+              ("gather_weighted", "C2", gf.gather_weighted, gather_probe.R_ONEHOT))
+    for name, tag, fn, R in probes:
+        weighted = fn is gf.gather_weighted
+        buf16, idx, *w = gather_probe.probe_inputs(r=R, weighted=weighted, device=dev)
+        plain = gf.gather_weighted_plain if weighted else gf.gather_rowsum_plain
+        r = rec[name] = {"max_abs_err": 0.0}
+        M, TQ, SAMP = idx.shape
+        for dt in (torch.float32, torch.bfloat16):
+            args = (buf16.to(dt), idx, *w)
+            err = _check(f"{name} {dt}", fn(*args), plain(*args), tol)
+            ms = event_ms(lambda: fn(*args), 50)
+            pms = event_ms(lambda: plain(*args), 10)
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            print(f"[lab {tag}] {name} R={R} M={M} TQ={TQ} SAMP={SAMP} D={D} "
+                  f"{str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol}) kernel {ms:.4f} ms, "
+                  f"plain {pms:.4f} ms")
+        bags = _bag_index(idx.view(M * TQ, SAMP), SAMP, dev)
+        lib = _library_bag(buf16.view(-1, D), bags,
+                           w[0].view(M * TQ, SAMP * 4) if weighted else None)
+        nbytes = (buf16.numel() * 2 + idx.numel() * 4 + M * TQ * D * 4
+                  + (w[0].numel() * 4 if weighted else 0))
+        b_ms, b_by = _bound(nbytes, (2 if weighted else 1) * idx.numel() * 4 * D, "fp32")
+        r.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=f"R={R} M={M} TQ={TQ} SAMP={SAMP} D={D} bf16")
+        print(f"[lab {tag}] bound {b_ms:.5f} ms ({b_by}); library embedding_bag(sum"
+              f"{', per_sample_weights' if weighted else ''}) in bf16: {lib:.4f} ms")
+
+    # the lab path: the two tools as a user runs them, launches counted
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    lab.parity()
+    v6 = {dt: lab.bench(dt) for dt in (torch.float32, torch.bfloat16)}
+    outs = {k: f()[0] for k, f in gather_probe.PROBES.items()}
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    for k, o in outs.items():
+        if o.shape != (gather_probe.M_STEPS, gather_probe.TQ, D) or not torch.isfinite(o).all():
+            raise AssertionError(f"probe {k}: {tuple(o.shape)} or non-finite values")
+    # fp32: the lab's tolerance. bf16: v6 rounds the corner weights to bf16
+    # (2^-9 of each term) and both round their outputs to bf16 (|out| < 8:
+    # 3.2e-2)
+    for dt, t in ((torch.float32, 1e-4), (torch.bfloat16, 6.3e-2)):
+        if not v6[dt]["max_abs_err"] <= t:
+            raise AssertionError(f"msda_v6 vs MSDA kernel {dt}: {v6[dt]['max_abs_err']} > {t}")
+    print(f"[lab] msda_v6 (index_select + kernel B) vs the port's MSDA kernel at the "
+          f"encoder shape: fp32 max_abs_err {v6[torch.float32]['max_abs_err']:.3g} "
+          f"(tol 1e-4), MSDA {v6[torch.float32]['msda_ms']:.3f} ms, v6 "
+          f"{v6[torch.float32]['v6_ms']:.3f} ms; bf16 max_abs_err "
+          f"{v6[torch.bfloat16]['max_abs_err']:.3g} (tol 6.3e-2), MSDA "
+          f"{v6[torch.bfloat16]['msda_ms']:.3f} ms, v6 {v6[torch.bfloat16]['v6_ms']:.3f} ms")
+    print(f"[lab] kernel launches on the lab path: {launches}")
+    torch.cuda.empty_cache()
+    return rec, launches
+
+
 def _tiny_vit_config():
     import dataclasses
     from uninext_tpu_torch.config import BackboneConfig, tiny_test_config
@@ -474,12 +604,16 @@ def phase_small_reference():
 
 def _counters():
     from uninext_tpu_torch.models import vit
-    from uninext_tpu_torch.ops import msda, nms
+    from uninext_tpu_torch.ops import gather_fold, msda, nms
     return {"rel_pos_flash_attn": vit.flash_rel_pos_attention,
             "rel_pos_flash_attn_bwd": vit.rel_pos_flash_attn_bwd,
             "ms_deform_attn_fwd": msda.ms_deform_attn,
             "ms_deform_attn_bwd": msda.ms_deform_attn_bwd,
-            "nms": nms.batched_nms}
+            "nms": nms.batched_nms,
+            "msda_fold": gather_fold.msda_fold,
+            "gather_rowsum_scalar": gather_fold.gather_rowsum_scalar,
+            "gather_rowsum_vec": gather_fold.gather_rowsum_vec,
+            "gather_weighted": gather_fold.gather_weighted}
 
 
 def _prompt(cfg):
@@ -523,7 +657,8 @@ def phase_serving():
             requests.append((img, pad, sizes.to(dev)))
         torch.cuda.synchronize()
         counters = _counters()
-        expect = {"rel_pos_flash_attn": cfg.backbone.vit_depth,
+        expect = {**dict.fromkeys(counters, 0),
+                  "rel_pos_flash_attn": cfg.backbone.vit_depth,
                   "rel_pos_flash_attn_bwd": 0,
                   "ms_deform_attn_fwd": (cfg.transformer.enc_layers
                                          + cfg.transformer.dec_layers),
@@ -640,7 +775,8 @@ def phase_training(profile: bool):
     t = cfg.transformer
     n_remat_msda = t.enc_layers if cfg.remat_encoder else 0
     n_remat_vit = cfg.backbone.vit_depth if cfg.backbone.vit_use_checkpoint else 0
-    expect = {"rel_pos_flash_attn": cfg.backbone.vit_depth + n_remat_vit,
+    expect = {**dict.fromkeys(counters, 0),
+              "rel_pos_flash_attn": cfg.backbone.vit_depth + n_remat_vit,
               "rel_pos_flash_attn_bwd": cfg.backbone.vit_depth,
               "ms_deform_attn_fwd": t.enc_layers + t.dec_layers + n_remat_msda,
               "ms_deform_attn_bwd": t.enc_layers + t.dec_layers, "nms": 0}
@@ -746,6 +882,14 @@ SOURCES = {
     "ms_deform_attn_bwd": ("uninext_tpu_torch/csrc/ms_deform_attn.cu",
                            "uninext_tpu/ops/msda.py:234"),
     "nms": ("uninext_tpu_torch/csrc/nms.cu", "uninext_tpu/ops/nms.py:25"),
+    "msda_fold": ("uninext_tpu_torch/csrc/gather_fold.cu",
+                  "tools/msda_v6_lab.py:87 _fold_pallas (_fold_kernel :68)"),
+    "gather_rowsum_scalar": ("uninext_tpu_torch/csrc/gather_fold.cu",
+                             "tools/pallas_gather_probe.py:57 probe_scalar_loop"),
+    "gather_rowsum_vec": ("uninext_tpu_torch/csrc/gather_fold.cu",
+                          "tools/pallas_gather_probe.py:88 probe_vector_gather"),
+    "gather_weighted": ("uninext_tpu_torch/csrc/gather_fold.cu",
+                        "tools/pallas_gather_probe.py:123 probe_onehot"),
 }
 
 
@@ -759,15 +903,18 @@ def main():
     card = phase_device()
     rec = phase_kernels()
     rec.update(phase_backward_kernels())
+    lab_rec, lab = phase_labs()
+    rec.update(lab_rec)
     phase_small_reference()
     serving = phase_serving()
     training = phase_training(profile)
     import torch
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        by_path = {"serving": serving[name], "training": training[name]}
+        by_path = {"serving": serving[name], "training": training[name],
+                   "lab": lab[name]}
         if sum(by_path.values()) == 0:
-            raise AssertionError(f"kernel {name} was never launched by the main path")
+            raise AssertionError(f"kernel {name} was never launched by its path")
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": sum(by_path.values()),

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (A, A-bwd, B, B-bwd, C) vs their plain PyTorch
-versions, on the card. A backward kernel is held to autograd through the
+"""The port's CUDA kernels (A, A-bwd, B, B-bwd, C, and the labs' fold and
+gather kernels) vs their plain PyTorch versions, on the card. A backward kernel is held to autograd through the
 plain version of its forward.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
@@ -21,7 +21,8 @@ import pytest
 import torch
 
 from uninext_tpu_torch.models import vit
-from uninext_tpu_torch.ops import msda, nms
+from uninext_tpu_torch.ops import gather_fold, msda, nms
+from uninext_tpu_torch.tools import msda_v6_lab
 
 pytestmark = pytest.mark.cuda
 
@@ -233,3 +234,61 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
         # floor 1e-2: leaves whose exact gradient is 0 (the key bias of a
         # softmax attention) hold only rounding noise
         _close_rel(n, got, want, torch.float32, floor=1e-2)
+
+
+# The labs' kernels (csrc/gather_fold.cu) return fp32 in both versions, which
+# read the same fp32 or bf16 inputs: only the order of fp32 sums (and fused
+# multiply-adds) of at most 64 terms below 10 differ.
+LAB_TOL = 5e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,N,D", [(16, 1000, 32), (3, 77, 8), (5, 33, 40)])
+def test_msda_fold_matches_plain(dev, dtype, S, N, D):
+    g = torch.Generator(device=dev).manual_seed(S * N + D)
+    rows = torch.randn(S, N, 4 * D, device=dev, generator=g).to(dtype)
+    w = torch.rand(S, N, 4, device=dev, generator=g).to(dtype)
+    before = gather_fold.msda_fold.launches
+    got = gather_fold.msda_fold(rows, w)
+    assert gather_fold.msda_fold.launches == before + 1
+    want = gather_fold.msda_fold_plain(rows, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (N, D)
+    torch.testing.assert_close(got, want, rtol=0, atol=LAB_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,TQ,SAMP,R,D", [(2, 37, 5, 61, 32), (3, 512, 16, 300, 32),
+                                           (1, 3, 7, 5, 40)])
+@pytest.mark.parametrize("kernel", ["scalar", "vec", "weighted"])
+def test_gather_kernels_match_plain(dev, dtype, kernel, M, TQ, SAMP, R, D):
+    g = torch.Generator(device=dev).manual_seed(M * TQ + SAMP * R + D)
+    buf = torch.randn(R, 4 * D, device=dev, generator=g).to(dtype)
+    idx = torch.randint(0, R, (M, TQ, SAMP), device=dev, generator=g, dtype=torch.int32)
+    w = torch.rand(M, TQ, SAMP, 4, device=dev, generator=g)
+    fn, args, want = {
+        "scalar": (gather_fold.gather_rowsum_scalar, (buf, idx),
+                   gather_fold.gather_rowsum_plain(buf, idx)),
+        "vec": (gather_fold.gather_rowsum_vec, (buf, idx),
+                gather_fold.gather_rowsum_plain(buf, idx)),
+        "weighted": (gather_fold.gather_weighted, (buf, idx, w),
+                     gather_fold.gather_weighted_plain(buf, idx, w)),
+    }[kernel]
+    if kernel == "vec" and D != 32:
+        with pytest.raises(ValueError, match="D = 32"):
+            fn(*args)
+        return
+    before = fn.launches
+    got = fn(*args)
+    assert fn.launches == before + 1
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (M, TQ, D)
+    torch.testing.assert_close(got, want, rtol=0, atol=LAB_TOL)
+
+
+def test_msda_v6_on_card_matches_plain_msda(dev):
+    """The lab's parity on the card: index_select + kernel B against the
+    plain MSDA, fp32, within the lab's 1e-4."""
+    before = gather_fold.msda_fold.launches
+    assert msda_v6_lab.parity(dev) < 1e-4
+    assert gather_fold.msda_fold.launches == before + 1

@@ -95,9 +95,10 @@ def test_bridge_round_trip_through_convert_checkpoint(pair):
 
 
 def test_port_runs_without_jax():
-    """Importing the port, serving a request and taking a train step leave
-    jax, flax and the JAX package (`uninext_tpu`, `uninext_tpu.*`) out of
-    sys.modules: the H100 machine runs the port without them."""
+    """Importing the port, serving a request, taking a train step and
+    running the two labs (`tools/`) at a tiny size leave jax, flax and the
+    JAX package (`uninext_tpu`, `uninext_tpu.*`) out of sys.modules: the
+    H100 machine runs the port without them."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -144,6 +145,12 @@ def test_port_runs_without_jax():
                                      "text_mask": torch.from_numpy(p_mask)[None].expand(2, 16),
                                      "targets": targets})
         assert torch.isfinite(metrics["total_loss"])
+        from uninext_tpu_torch.tools import gather_probe, msda_v6_lab
+        assert msda_v6_lab.parity("cpu") < 1e-4
+        small = dict(r=64, tq=8, samp=4, m_steps=2)
+        for probe in gather_probe.PROBES.values():
+            out, ms = probe(device="cpu", **small)
+            assert out.shape == (2, 8, 32) and torch.isfinite(out).all() and ms is None
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "uninext_tpu"))
         print("JAX_MODULES", bad)

@@ -10,6 +10,7 @@ the detection serving path (ViT -> input projections -> BERT prompt ->
 VLFuse -> 6 deformable encoder layers -> two-stage top-k -> 6 decoder
 layers -> heads -> `postprocess_detection`) and its training step (DN
 queries, matching, losses, backward, clip, per-group AdamW;
-`engine/train.py`). Its hand-written Hopper kernels live in `csrc/` and
-are bound in `ops/` and `models/vit.py`.
+`engine/train.py`), and the two MSDA lab tools (`tools/`). Its
+hand-written Hopper kernels live in `csrc/` and are bound in `ops/` and
+`models/vit.py`.
 """

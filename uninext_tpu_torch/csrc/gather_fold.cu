@@ -1,0 +1,233 @@
+// Kernels of the two MSDA labs: one family of functions, a weighted sum of
+// rows gathered from a table whose rows hold the four bilinear corners of a
+// sample side by side (row = [corner 0 | corner 1 | corner 2 | corner 3],
+// each D wide).
+//
+//   B  msda_fold             out[n,d]   = sum_{s,c} g[s,n, c*D+d] * w[s,n,c]
+//      replaces tools/msda_v6_lab.py:87 _fold_pallas (_fold_kernel :68),
+//      the fold of rows that an XLA gather already fetched;
+//   C0 gather_rowsum_scalar  out[m,q,d] = sum_{s,c} buf[idx[m,q,s], c*D+d]
+//      replaces tools/pallas_gather_probe.py:57 probe_scalar_loop, a
+//      scalar loop copying rows one by one;
+//   C1 gather_rowsum_vec     the same function as C0, replacing :88
+//      probe_vector_gather (a vector jnp.take);
+//   C2 gather_weighted       out[m,q,d] = sum_{s,c} buf[idx[m,q,s], c*D+d] * w[m,q,s,c]
+//      replaces :123 probe_onehot, a one-hot x table product on the MXU.
+//
+// Each kernel computes its TPU kernel's function, not its blocking: the
+// transposed view of the gather output, the static FOLD_TN blocks and the
+// one-hot product were workarounds for what Mosaic accepted. Here B reads
+// g row-major, as index_select returns it, and C2 indexes the table
+// directly. Sums are fp32 in the order s, then c; inputs are fp32 or bf16.
+//
+// What bounds them on the H100: B reads every gathered row once (671 MB
+// in bf16 at the lab's shape), so HBM bandwidth. C0-C2 read small tables
+// (1.4 MB and 0.36 MB) that stay in L2 while 131072 rows are gathered from
+// them, so L2 transactions and latency; their bytes from HBM are only the
+// table, the indices, the weights and the output.
+//
+// Indices are not checked: each must lie in [0, rows of the table), as on
+// the TPU.
+#include <cstdint>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarpsPerBlock = 8;
+
+// B: one warp per column n, lane = channel d (D > 32 loops over chunks of
+// 32). A warp reads the four D-wide corner segments of each of its S rows,
+// 64 or 128 contiguous bytes each; weights are warp-uniform loads.
+template <typename T>
+__global__ void msda_fold_kernel(const T* __restrict__ g, const T* __restrict__ w,
+                                 float* __restrict__ out, int S, long long N,
+                                 int D) {
+  const long long n = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (n >= N) return;
+  const int lane = threadIdx.x & 31;
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < S; ++s) {
+      const size_t row = (size_t)s * N + n;
+      const T* gr = g + row * 4 * D + d;
+      const T* wr = w + row * 4;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc += to_f32(gr[c * D]) * to_f32(wr[c]);
+    }
+    out[n * D + d] = acc;
+  }
+}
+
+// C0: one thread per output element (m, q, d), scalar loads of the SAMP x 4
+// corner values it sums: the counterpart of the TPU's scalar copy loop.
+template <typename T>
+__global__ void rowsum_scalar_kernel(const T* __restrict__ buf,
+                                     const int* __restrict__ idx,
+                                     float* __restrict__ out, long long MQ,
+                                     int SAMP, int D) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= MQ * D) return;
+  const long long mq = t / D;
+  const int d = (int)(t - mq * D);
+  const int* ix = idx + mq * SAMP;
+  float acc = 0.f;
+  for (int s = 0; s < SAMP; ++s) {
+    const T* r = buf + (size_t)ix[s] * 4 * D + d;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc += to_f32(r[c * D]);
+  }
+  out[t] = acc;
+}
+
+// C1: one warp per (m, q), D = 32. A row (4 x 32 values) is VR 16-byte
+// vectors: 16 in bf16, so one iteration reads two rows (lanes 0-15 and
+// 16-31); 32 in fp32, one row. Lane l always holds vector l % VR, i.e. V
+// consecutive channels of one corner; lanes with equal l % DV hold the same
+// channels of other corners or rows, and shuffles add them.
+template <typename T>
+__global__ void rowsum_vec_kernel(const T* __restrict__ buf,
+                                  const int* __restrict__ idx,
+                                  float* __restrict__ out, long long MQ,
+                                  int SAMP) {
+  constexpr int D = 32;
+  constexpr int V = 16 / sizeof(T);     // values per 16-byte vector
+  constexpr int VR = 4 * D / V;         // vectors per row
+  constexpr int RPI = 32 / VR;          // rows per warp iteration
+  constexpr int DV = D / V;             // vectors per corner
+  const long long mq = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (mq >= MQ) return;                 // whole warps only
+  const int lane = threadIdx.x & 31;
+  const int v = lane % VR;
+  const int* ix = idx + mq * SAMP;
+  float acc[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] = 0.f;
+  for (int s = lane / VR; s < SAMP; s += RPI) {
+    const uint4 q = *reinterpret_cast<const uint4*>(buf + (size_t)ix[s] * 4 * D + v * V);
+    const T* e = reinterpret_cast<const T*>(&q);
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += to_f32(e[i]);
+  }
+#pragma unroll
+  for (int m = DV; m < 32; m <<= 1) {
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], m);
+  }
+  if (lane < DV) {
+    float* o = out + mq * D + lane * V;
+#pragma unroll
+    for (int i = 0; i < V; ++i) o[i] = acc[i];
+  }
+}
+
+// C2: one warp per (m, q), lane = channel; per sample the warp reads the
+// gathered row's four corner segments and the sample's four fp32 weights
+// (warp-uniform). No one-hot and no tensor cores: the card gathers by
+// address.
+template <typename T>
+__global__ void gather_weighted_kernel(const T* __restrict__ buf,
+                                       const int* __restrict__ idx,
+                                       const float* __restrict__ w,
+                                       float* __restrict__ out, long long MQ,
+                                       int SAMP, int D) {
+  const long long mq = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (mq >= MQ) return;
+  const int lane = threadIdx.x & 31;
+  const int* ix = idx + mq * SAMP;
+  const float* ws = w + mq * SAMP * 4;
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.f;
+    for (int s = 0; s < SAMP; ++s) {
+      const T* r = buf + (size_t)ix[s] * 4 * D + d;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc += to_f32(r[c * D]) * ws[s * 4 + c];
+    }
+    out[mq * D + d] = acc;
+  }
+}
+
+unsigned blocks_for(long long items, long long per_block) {
+  return (unsigned)((items + per_block - 1) / per_block);
+}
+
+template <typename T>
+int fold(const void* g, const void* w, float* out, int S, long long N, int D,
+         cudaStream_t st) {
+  msda_fold_kernel<T><<<blocks_for(N, kWarpsPerBlock), 32 * kWarpsPerBlock, 0, st>>>(
+      (const T*)g, (const T*)w, out, S, N, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int rowsum_scalar(const void* buf, const int* idx, float* out, long long MQ,
+                  int SAMP, int D, cudaStream_t st) {
+  rowsum_scalar_kernel<T><<<blocks_for(MQ * D, 256), 256, 0, st>>>(
+      (const T*)buf, idx, out, MQ, SAMP, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int rowsum_vec(const void* buf, const int* idx, float* out, long long MQ,
+               int SAMP, cudaStream_t st) {
+  rowsum_vec_kernel<T><<<blocks_for(MQ, kWarpsPerBlock), 32 * kWarpsPerBlock, 0, st>>>(
+      (const T*)buf, idx, out, MQ, SAMP);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int weighted(const void* buf, const int* idx, const float* w, float* out,
+             long long MQ, int SAMP, int D, cudaStream_t st) {
+  gather_weighted_kernel<T><<<blocks_for(MQ, kWarpsPerBlock), 32 * kWarpsPerBlock, 0, st>>>(
+      (const T*)buf, idx, w, out, MQ, SAMP, D);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// B. g: (S, N, 4*D), w: (S, N, 4), both of `dtype`, contiguous; out: (N, D)
+// fp32.
+extern "C" int msda_fold(const void* g, const void* w, float* out, int S,
+                         long long N, int D, int dtype, void* stream) {
+  if (S <= 0 || N <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == UNINEXT_F32) return fold<float>(g, w, out, S, N, D, st);
+  if (dtype == UNINEXT_BF16) return fold<__nv_bfloat16>(g, w, out, S, N, D, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C0. buf: (R, 4*D) of `dtype`; idx: (MQ, SAMP) int32; out: (MQ, D) fp32.
+extern "C" int gather_rowsum_scalar(const void* buf, const int* idx, float* out,
+                                    long long MQ, int SAMP, int D, int dtype,
+                                    void* stream) {
+  if (MQ <= 0 || SAMP <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == UNINEXT_F32) return rowsum_scalar<float>(buf, idx, out, MQ, SAMP, D, st);
+  if (dtype == UNINEXT_BF16)
+    return rowsum_scalar<__nv_bfloat16>(buf, idx, out, MQ, SAMP, D, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C1. As C0 with D = 32; buf 16-byte aligned.
+extern "C" int gather_rowsum_vec(const void* buf, const int* idx, float* out,
+                                 long long MQ, int SAMP, int dtype, void* stream) {
+  if (MQ <= 0 || SAMP <= 0 || reinterpret_cast<uintptr_t>(buf) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == UNINEXT_F32) return rowsum_vec<float>(buf, idx, out, MQ, SAMP, st);
+  if (dtype == UNINEXT_BF16) return rowsum_vec<__nv_bfloat16>(buf, idx, out, MQ, SAMP, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C2. As C0, with w: (MQ, SAMP, 4) fp32.
+extern "C" int gather_weighted(const void* buf, const int* idx, const float* w,
+                               float* out, long long MQ, int SAMP, int D,
+                               int dtype, void* stream) {
+  if (MQ <= 0 || SAMP <= 0 || D <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == UNINEXT_F32) return weighted<float>(buf, idx, w, out, MQ, SAMP, D, st);
+  if (dtype == UNINEXT_BF16)
+    return weighted<__nv_bfloat16>(buf, idx, w, out, MQ, SAMP, D, st);
+  return (int)cudaErrorInvalidValue;
+}

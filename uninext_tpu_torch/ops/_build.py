@@ -38,6 +38,7 @@ KERNELS: Dict[str, Tuple[str, ...]] = {
     "rel_pos_flash_attn_bwd": (),
     "ms_deform_attn": (),
     "nms": ("-fmad=false",),
+    "gather_fold": (),
 }
 
 # dtype codes of the C entry points (UNINEXT_F32 / UNINEXT_BF16 in common.cuh)

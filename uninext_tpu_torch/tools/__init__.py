@@ -1,0 +1,31 @@
+"""Ports of the JAX package's lab tools whose kernels were written in
+Pallas: `msda_v6_lab` (tools/msda_v6_lab.py) and `gather_probe`
+(tools/pallas_gather_probe.py). Each runs on the card by default:
+
+    python -m uninext_tpu_torch.tools.msda_v6_lab
+    python -m uninext_tpu_torch.tools.gather_probe
+"""
+import torch
+
+
+def event_ms(fn, iters=20, warmup=3) -> float:
+    """Mean milliseconds per call of `fn` on the card: `iters` calls
+    captured in one CUDA graph, whose replay is timed with CUDA events, so
+    the host's launch overhead (which exceeds the small kernels' run time)
+    stays out of the number. `fn` must be capturable: no host syncs."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()                      # the first replay uploads the graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * iters)
