@@ -16,11 +16,13 @@ nonzero):
   3. backward kernels: A-bwd and B-bwd against autograd through the plain
      versions at the training shapes, fp32 and bf16, timed the same way;
   3b. labs: the labs' kernels in `csrc/gather_fold.cu` (the fold, TPU
-     kernel B of `tools/msda_v6_lab.py`, and the gather probes C0-C2)
-     against their plain versions at the tools' shapes, fp32 and bf16, timed the same way; then the lab path with its
-     launches counted: `tools/msda_v6_lab.py` (parity, and v6 against the
-     port's MSDA kernel at the encoder shape in fp32 and bf16) and the
-     three probes of `tools/gather_probe.py`;
+     kernel B of `tools/msda_v6_lab.py`, and the gather probes C0-C2) and
+     `csrc/dma_gather.cu` (the DMA probes C3, C4) against their plain
+     versions at the tools' shapes, fp32 and bf16, timed over CUDA graph
+     replays; then the lab path with its launches counted:
+     `tools/msda_v6_lab.py` (parity, and v6 against the port's MSDA kernel
+     at the encoder shape in fp32 and bf16), the three probes of
+     `tools/gather_probe.py` and the three of `tools/dma_probe.py`;
   4. correctness: a small model with the same weights on the card (kernels)
      and on the CPU (plain versions): the serving outputs, then one train
      step's losses and every gradient;
@@ -414,7 +416,7 @@ def phase_labs():
     time than the host takes to launch them."""
     import torch
     from uninext_tpu_torch.ops import gather_fold as gf
-    from uninext_tpu_torch.tools import event_ms, gather_probe, msda_v6_lab as lab
+    from uninext_tpu_torch.tools import dma_probe, event_ms, gather_probe, msda_v6_lab as lab
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
     # both versions return fp32 from the same inputs: only the order of fp32
@@ -482,18 +484,32 @@ def phase_labs():
         print(f"[lab {tag}] bound {b_ms:.5f} ms ({b_by}); library embedding_bag(sum"
               f"{', per_sample_weights' if weighted else ''}) in bf16: {lib:.4f} ms")
 
-    # the lab path: the two tools as a user runs them, launches counted
+    # kernels C3 and C4 at the DMA probe's shapes (bf16 tables, as the probes)
+    _check_dma_kernels(rec, dev, tol)
+
+    # the lab path: the three tools as a user runs them, launches counted
     counters = _counters()
     for c in counters.values():
         c.launches = 0
     lab.parity()
     v6 = {dt: lab.bench(dt) for dt in (torch.float32, torch.bfloat16)}
     outs = {k: f()[0] for k, f in gather_probe.PROBES.items()}
+    dma = {k: f() for k, f in dma_probe.PROBES.items()}
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
     for k, o in outs.items():
         if o.shape != (gather_probe.M_STEPS, gather_probe.TQ, D) or not torch.isfinite(o).all():
             raise AssertionError(f"probe {k}: {tuple(o.shape)} or non-finite values")
+    n_idx = dma_probe.TILES * dma_probe.K
+    for k, (o, _) in dma.items():
+        rows = n_idx * 8 if k == "3" else dma_probe.TILES * 8
+        if o.shape != (rows, dma_probe.D4) or not torch.isfinite(o).all():
+            raise AssertionError(f"dma probe {k}: {tuple(o.shape)} or non-finite values")
+    print(f"[lab] dma probes: probe 1 (C3) {dma['1'][1]:.4f} ms, "
+          f"{n_idx / dma['1'][1] / 1e3:.0f} rows/us; probe 2 (C3, L2 evict_last) "
+          f"{dma['2'][1]:.4f} ms, {n_idx / dma['2'][1] / 1e3:.0f} rows/us; probe 3 (C4) "
+          f"{dma['3'][1]:.4f} ms, {n_idx / dma['3'][1] / 1e3:.0f} blocks/us")
+    del dma
     # fp32: the lab's tolerance. bf16: v6 rounds the corner weights to bf16
     # (2^-9 of each term) and both round their outputs to bf16 (|out| < 8:
     # 3.2e-2)
@@ -509,6 +525,61 @@ def phase_labs():
     print(f"[lab] kernel launches on the lab path: {launches}")
     torch.cuda.empty_cache()
     return rec, launches
+
+
+def _check_dma_kernels(rec, dev, tol):
+    """C3 (both cache policies) and C4 vs their plain versions at the DMA
+    probe's shapes, fp32 and bf16 tables, with their times (CUDA graph
+    replays), bounds and library calls, into `rec`."""
+    import functools
+
+    import torch
+    import torch.nn.functional as F
+    from uninext_tpu_torch.ops import dma_gather as dg
+    from uninext_tpu_torch.tools import dma_probe, event_ms
+    K, D4 = dma_probe.K, dma_probe.D4
+    # C3: fp32 sums of 32 terms below 5 in two orders; C4 copies exactly
+    cases = (("dma_gather_rowsum", "C3", False, tol, dg.dma_gather_rowsum_plain,
+              {"": dg.dma_gather_rowsum,
+               " evict_last": functools.partial(dg.dma_gather_rowsum, l2_resident=True)}),
+             ("dma_block_gather", "C4", True, 0.0, dg.dma_block_gather_plain,
+              {"": dg.dma_block_gather}))
+    for name, tag, blocks, t, plain, variants in cases:
+        buf16, idx = dma_probe.probe_inputs(blocks=blocks, device=dev)
+        r = rec[name] = {"max_abs_err": 0.0}
+        for dt in (torch.float32, torch.bfloat16):
+            buf = buf16.to(dt)
+            want = plain(buf, idx)
+            for label, fn in variants.items():
+                err = _check(f"{name}{label} {dt}", fn(buf, idx), want, t)
+                r["max_abs_err"] = max(r["max_abs_err"], err)
+                ms = event_ms(lambda: fn(buf, idx), 10)
+                print(f"[lab {tag}] {name}{label} R={buf.shape[0]} D4={D4} "
+                      f"{idx.numel()} indices {str(dt)[6:]}: max_abs_err={err:.3g} "
+                      f"(tol {t}) kernel {ms:.4f} ms")
+                if not label:
+                    kernel_ms = ms
+            del want
+            pms = event_ms(lambda: plain(buf, idx), 5)
+            print(f"[lab {tag}] {name} plain {str(dt)[6:]}: {pms:.4f} ms")
+        out_numel = (idx.numel() * 8 if blocks else idx.numel() // K * 8) * D4
+        b_ms, b_by = _bound(buf16.numel() * 2 + idx.numel() * 4 + out_numel * 4,
+                            out_numel if blocks else idx.numel() * D4, "fp32")
+        if blocks:
+            # the table as 1963 blocks of 8 rows, cast to fp32 once (untimed)
+            table = buf16[:8 * (buf16.shape[0] // 8)].reshape(-1, 8 * D4).float()
+            lib = event_ms(lambda: F.embedding(idx, table), 10)
+            lib_what = "embedding(idx, table as (1963, 1024) fp32, cast outside the timing)"
+            del table
+        else:
+            bags = idx.view(-1, K).long()
+            lib = event_ms(lambda: F.embedding_bag(bags, buf16, mode="sum"), 10)
+            lib_what = "embedding_bag(sum) over bags of 32, bf16, one row per tile (not 8)"
+        r.update(ms=kernel_ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                 shape=f"R={buf16.shape[0]} D4={D4} {idx.numel()} indices bf16")
+        print(f"[lab {tag}] bound {b_ms:.5f} ms ({b_by}); library {lib_what}: {lib:.4f} ms")
+        del buf16, idx
+        torch.cuda.empty_cache()
 
 
 def _tiny_vit_config():
@@ -604,7 +675,7 @@ def phase_small_reference():
 
 def _counters():
     from uninext_tpu_torch.models import vit
-    from uninext_tpu_torch.ops import gather_fold, msda, nms
+    from uninext_tpu_torch.ops import dma_gather, gather_fold, msda, nms
     return {"rel_pos_flash_attn": vit.flash_rel_pos_attention,
             "rel_pos_flash_attn_bwd": vit.rel_pos_flash_attn_bwd,
             "ms_deform_attn_fwd": msda.ms_deform_attn,
@@ -613,7 +684,9 @@ def _counters():
             "msda_fold": gather_fold.msda_fold,
             "gather_rowsum_scalar": gather_fold.gather_rowsum_scalar,
             "gather_rowsum_vec": gather_fold.gather_rowsum_vec,
-            "gather_weighted": gather_fold.gather_weighted}
+            "gather_weighted": gather_fold.gather_weighted,
+            "dma_gather_rowsum": dma_gather.dma_gather_rowsum,
+            "dma_block_gather": dma_gather.dma_block_gather}
 
 
 def _prompt(cfg):
@@ -890,6 +963,10 @@ SOURCES = {
                           "tools/pallas_gather_probe.py:88 probe_vector_gather"),
     "gather_weighted": ("uninext_tpu_torch/csrc/gather_fold.cu",
                         "tools/pallas_gather_probe.py:123 probe_onehot"),
+    "dma_gather_rowsum": ("uninext_tpu_torch/csrc/dma_gather.cu",
+                          "tools/pallas_dma_probe.py:101 probe_dma (dma_kernel :84)"),
+    "dma_block_gather": ("uninext_tpu_torch/csrc/dma_gather.cu",
+                         "tools/pallas_dma_probe.py:129 probe_index_map (imap_kernel :125)"),
 }
 
 

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (A, A-bwd, B, B-bwd, C, and the labs' fold and
-gather kernels) vs their plain PyTorch versions, on the card. A backward kernel is held to autograd through the
+"""The port's CUDA kernels (A, A-bwd, B, B-bwd, C, and the labs' fold,
+gather and DMA-probe kernels) vs their plain PyTorch versions, on the card. A backward kernel is held to autograd through the
 plain version of its forward.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from uninext_tpu_torch.models import vit
-from uninext_tpu_torch.ops import gather_fold, msda, nms
+from uninext_tpu_torch.ops import dma_gather, gather_fold, msda, nms
 from uninext_tpu_torch.tools import msda_v6_lab
 
 pytestmark = pytest.mark.cuda
@@ -292,3 +292,59 @@ def test_msda_v6_on_card_matches_plain_msda(dev):
     before = gather_fold.msda_fold.launches
     assert msda_v6_lab.parity(dev) < 1e-4
     assert gather_fold.msda_fold.launches == before + 1
+
+
+# C3 and C4 at the DMA probe's row width (D4 = 128) and others: tile and
+# block counts that fill the grid unevenly (C3 runs one block per tile,
+# C4 8 warps per block up to 2112 blocks, grid-stride beyond), a table of
+# 15708 rows whose last whole block is index 1962, and an fp32 table.
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D4,K,tiles,rows_out", [(15708, 128, 32, 4096, 8), (61, 128, 5, 133, 8),
+                                                   (300, 64, 32, 7, 3), (40, 256, 1, 1, 1)])
+@pytest.mark.parametrize("l2_resident", [False, True])
+def test_dma_gather_rowsum_matches_plain(dev, dtype, R, D4, K, tiles, rows_out, l2_resident):
+    g = torch.Generator(device=dev).manual_seed(R + K * tiles)
+    buf = torch.randn(R, D4, device=dev, generator=g).to(dtype)
+    idx = torch.randint(0, R, (tiles * K,), device=dev, generator=g, dtype=torch.int32)
+    idx[-1] = R - 1
+    before = dma_gather.dma_gather_rowsum.launches
+    got = dma_gather.dma_gather_rowsum(buf, idx, k=K, rows_out=rows_out,
+                                       l2_resident=l2_resident)
+    assert dma_gather.dma_gather_rowsum.launches == before + 1
+    want = dma_gather.dma_gather_rowsum_plain(buf, idx, K, rows_out)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (tiles * rows_out, D4)
+    torch.testing.assert_close(got, want, rtol=0, atol=LAB_TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,D4,n", [(15708, 128, 131072), (15708, 128, 17), (64, 8, 2113),
+                                    (17, 256, 3)])
+def test_dma_block_gather_matches_plain(dev, dtype, R, D4, n):
+    g = torch.Generator(device=dev).manual_seed(R + n)
+    buf = torch.randn(R, D4, device=dev, generator=g).to(dtype)
+    idx = torch.randint(0, R // 8, (n,), device=dev, generator=g, dtype=torch.int32)
+    idx[-1] = R // 8 - 1                         # 1962 at the probe's table
+    before = dma_gather.dma_block_gather.launches
+    got = dma_gather.dma_block_gather(buf, idx)
+    assert dma_gather.dma_block_gather.launches == before + 1
+    want = dma_gather.dma_block_gather_plain(buf, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (8 * n, D4)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_dma_gather_wrappers_refuse_what_the_kernels_cannot_copy(dev):
+    """Bulk copies and 16-byte loads need a 16-byte aligned table with rows
+    of a multiple of 16 bytes; the wrappers raise rather than take another
+    route."""
+    flat = torch.randn(65 * 128 + 1, device=dev, dtype=torch.bfloat16)
+    buf = flat[:-1].view(65, 128)
+    idx = torch.zeros(32, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        dma_gather.dma_gather_rowsum(flat[1:].view(65, 128), idx)   # 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        dma_gather.dma_block_gather(buf[:, :4].contiguous(), idx)   # 8-byte rows
+    with pytest.raises(ValueError, match="tiles of"):
+        dma_gather.dma_gather_rowsum(buf, idx[:31])

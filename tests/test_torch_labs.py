@@ -28,7 +28,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from uninext_tpu.ops import msda as jmsda
-from uninext_tpu_torch.ops import gather_fold
+from uninext_tpu_torch.ops import dma_gather, gather_fold
 from uninext_tpu_torch.ops.msda import ms_deform_attn_plain
 from uninext_tpu_torch.tools import msda_v6_lab
 
@@ -39,13 +39,14 @@ CACHE_DIR = jax.config.jax_compilation_cache_dir
 
 @pytest.fixture(scope="module")
 def jax_tools():
-    """tools/msda_v6_lab.py and tools/pallas_gather_probe.py, imported by
-    path with the compilation cache directory and sys.path restored."""
+    """tools/msda_v6_lab.py, tools/pallas_gather_probe.py and
+    tools/pallas_dma_probe.py, imported by path with the compilation cache
+    directory and sys.path restored."""
     saved_dir = jax.config.jax_compilation_cache_dir
     saved_path = list(sys.path)
     mods = {}
     try:
-        for name in ("msda_v6_lab", "pallas_gather_probe"):
+        for name in ("msda_v6_lab", "pallas_gather_probe", "pallas_dma_probe"):
             spec = importlib.util.spec_from_file_location(
                 f"_jax_tool_{name}", os.path.join(REPO, "tools", f"{name}.py"))
             mods[name] = importlib.util.module_from_spec(spec)
@@ -174,4 +175,51 @@ def test_probe_plain_matches_pallas_probe(jax_tools, interpret, monkeypatch, pro
               "vector_gather": gather_fold.gather_rowsum_vec}[probe]
         got = fn(buf, idx)
     assert got.dtype == torch.float32 and got.shape == (M, TQ, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(cap["out"]), rtol=0, atol=TOL)
+
+
+# ---- C3, C4: the DMA probes ------------------------------------------------------
+
+DMA_SMALL = dict(R=64, K=4, TILES=8)
+
+
+@pytest.mark.parametrize("probe", ["1", "2", "3"])
+def test_dma_probe_plain_matches_pallas_probe(jax_tools, interpret, monkeypatch, probe):
+    """tools/pallas_dma_probe.py's probes 1 and 2 (`probe_dma` with the
+    table in HBM and in VMEM) and 3 (`probe_index_map`), their own
+    pallas_call shrunk through the module's globals, against the port's C3
+    and C4 on the probe's own inputs (captured by replacing its timer)."""
+    mod = jax_tools["pallas_dma_probe"]
+    for k, v in DMA_SMALL.items():
+        monkeypatch.setattr(mod, k, v)
+    cap = {}
+
+    def capture(fn, *args, iters=10):
+        cap["args"], cap["out"] = args, fn(*args)
+        return 1.0
+
+    monkeypatch.setattr(mod, "honest_ms", capture)
+    state = np.random.get_state()
+    np.random.seed(5)
+    try:
+        if probe == "3":
+            mod.probe_index_map()
+        else:
+            space = pl.ANY if probe == "1" else mod.pltpu.VMEM
+            mod.probe_dma(space, f"probe{probe}")
+    finally:
+        np.random.set_state(state)
+    R, K, TILES = DMA_SMALL["R"], DMA_SMALL["K"], DMA_SMALL["TILES"]
+    idx = torch.from_numpy(np.array(cap["args"][0]))
+    buf = _bf16_exact(cap["args"][1])
+    assert buf.dtype == torch.bfloat16 and buf.shape == (R, mod.D4)
+    assert idx.dtype == torch.int32 and idx.shape == (TILES * K,)
+    if probe == "3":
+        assert int(idx.max()) < R // 8
+        got = dma_gather.dma_block_gather(buf, idx)
+        assert got.shape == (TILES * K * 8, mod.D4)
+    else:
+        got = dma_gather.dma_gather_rowsum(buf, idx, k=K)
+        assert got.shape == (TILES * 8, mod.D4)
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(cap["out"]), rtol=0, atol=TOL)

@@ -96,7 +96,7 @@ def test_bridge_round_trip_through_convert_checkpoint(pair):
 
 def test_port_runs_without_jax():
     """Importing the port, serving a request, taking a train step and
-    running the two labs (`tools/`) at a tiny size leave jax, flax and the
+    running the three labs (`tools/`) at a tiny size leave jax, flax and the
     JAX package (`uninext_tpu`, `uninext_tpu.*`) out of sys.modules: the
     H100 machine runs the port without them."""
     code = textwrap.dedent("""
@@ -151,6 +151,11 @@ def test_port_runs_without_jax():
         for probe in gather_probe.PROBES.values():
             out, ms = probe(device="cpu", **small)
             assert out.shape == (2, 8, 32) and torch.isfinite(out).all() and ms is None
+        from uninext_tpu_torch.tools import dma_probe
+        for key, probe in dma_probe.PROBES.items():
+            out, ms = probe(device="cpu", r=64, k=4, tiles=8)
+            rows = 8 * 8 if key != "3" else 8 * 4 * 8
+            assert out.shape == (rows, 128) and torch.isfinite(out).all() and ms is None
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "uninext_tpu"))
         print("JAX_MODULES", bad)

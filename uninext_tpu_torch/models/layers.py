@@ -110,7 +110,13 @@ class MSDeformAttn(nn.Module):
 
     forward(query (B,Lq,C), reference_points (B,Lq,L,2|4), value_flatten
     (B,S,C), value_mask (B,S) True=padding, spatial_shapes) -> (B,Lq,C).
-    Offsets, weights and locations stay fp32 into the kernel."""
+    Offsets and weights are computed in fp32; the locations and attention
+    weights are rounded to the value's dtype before the op, as the JAX
+    module does, and reach the kernel as fp32 tensors holding those values.
+    The kernel then folds the corners and sums in fp32, where the JAX op
+    rounds each corner product and the four-corner sum to bf16
+    (uninext_tpu/ops/msda.py:201-208): in bf16 the two differ by about one
+    output rounding step."""
 
     def __init__(self, d_model: int = 256, n_levels: int = 4, n_heads: int = 8,
                  n_points: int = 4, dtype: torch.dtype = torch.float32):
@@ -151,7 +157,8 @@ class MSDeformAttn(nn.Module):
             loc = (reference_points[:, :, None, :, None, :2]
                    + offsets / P * reference_points[:, :, None, :, None, 2:] * 0.5)
         out = ms_deform_attn(value.contiguous(), tuple(spatial_shapes),
-                             loc.float().contiguous(), attn.contiguous())
+                             loc.to(value.dtype).float().contiguous(),
+                             attn.to(value.dtype).float().contiguous())
         return self.output_proj(out)
 
 

@@ -39,6 +39,7 @@ KERNELS: Dict[str, Tuple[str, ...]] = {
     "ms_deform_attn": (),
     "nms": ("-fmad=false",),
     "gather_fold": (),
+    "dma_gather": (),
 }
 
 # dtype codes of the C entry points (UNINEXT_F32 / UNINEXT_BF16 in common.cuh)

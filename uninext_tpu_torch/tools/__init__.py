@@ -1,9 +1,11 @@
 """Ports of the JAX package's lab tools whose kernels were written in
-Pallas: `msda_v6_lab` (tools/msda_v6_lab.py) and `gather_probe`
-(tools/pallas_gather_probe.py). Each runs on the card by default:
+Pallas: `msda_v6_lab` (tools/msda_v6_lab.py), `gather_probe`
+(tools/pallas_gather_probe.py) and `dma_probe` (tools/pallas_dma_probe.py).
+Each runs on the card by default:
 
     python -m uninext_tpu_torch.tools.msda_v6_lab
     python -m uninext_tpu_torch.tools.gather_probe
+    python -m uninext_tpu_torch.tools.dma_probe
 """
 import torch
 
