@@ -6,13 +6,15 @@ serving and the training step, and the two MSDA labs (`tools/`).
 
 Phases (each prints its lines and raises on failure, so the exit code is
 nonzero):
-  1. device: the card's name and power limit (nvidia-smi) and the build of
+  1. device: the card's name and power limit (nvidia-smi), the build of
      the kernel libraries from `uninext_tpu_torch/csrc/` (one nvcc each,
-     all started together);
+     all started together) and ptxas's registers and spills of kernel A's
+     tensor-core route;
   2. kernels: each forward kernel (A, B, C) against its plain PyTorch
-     version on the card at the slice's shapes, in fp32 and bf16, with both
-     times (CUDA events), the least time the card could take (bound) and,
-     where one exists, one PyTorch library call's time;
+     version on the card at the slice's shapes, in fp32 and bf16 (kernel A:
+     bf16 on the tensor cores, fp32 on the CUDA cores), with both times
+     (CUDA events), the least time the card could take (bound) and, where
+     one exists, one PyTorch library call's time;
   3. backward kernels: A-bwd and B-bwd against autograd through the plain
      versions at the training shapes, fp32 and bf16, timed the same way;
   3b. labs: the labs' kernels in `csrc/gather_fold.cu` (the fold, TPU
@@ -24,17 +26,20 @@ nonzero):
      at the encoder shape in fp32 and bf16), the three probes of
      `tools/gather_probe.py` and the three of `tools/dma_probe.py`;
   4. correctness: a small model with the same weights on the card (kernels)
-     and on the CPU (plain versions): the serving outputs, then one train
-     step's losses and every gradient;
+     and on the CPU (plain versions), fp32: the serving outputs, then one
+     train step's losses and every gradient, with its launches counted as
+     path "reference" (the path of kernel A's fp32 route);
   5. serving: `image_joint_vit_huge()` at full width with random weights
      from a seed, the 80-class COCO prompt encoded once, and 4 requests at
      800x1216 through forward and `postprocess_detection`, with the kernel
-     launches of each request counted;
+     launches of each request counted (kernel A on the tensor-core route
+     only);
   6. training: the same config, bs=2 at 800x1216 (one image valid on
      800x1088), synthetic targets, 1 warm-up and 3 timed steps of
      `engine/train.py:train_step` (forward, losses, backward, clip, AdamW),
      with losses, grad norm, step time, peak memory and per-step launches.
-     `--profile` adds one profiled step and prints its time by kernel.
+     `--profile` adds one profiled request and one profiled step and prints
+     their device time by kernel and the device's idle share.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is `{"ok": true, "device": {...}}`. Exits nonzero and prints no
@@ -93,7 +98,23 @@ def phase_device():
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {len(_build.KERNELS)} kernel libraries "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
+    _print_ptxas(_build.build_log("rel_pos_flash_attn_mma"))
     return smi.stdout.strip().splitlines()[0]
+
+
+def _print_ptxas(log):
+    """One line per kernel that ptxas -v reported: its stack frame, spills,
+    registers and static shared memory (the log is empty when the library
+    was built by an earlier run without its log)."""
+    entry, spill = None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry, spill = line.split("'")[1], ""
+        elif entry and "spill" in line:
+            spill = line.strip()
+        elif entry and "Used" in line:
+            print(f"[ptxas] {entry}: {spill}; {line.split(':', 1)[1].strip()}")
+            entry = None
 
 
 def _check(name, got, want, tol):
@@ -157,6 +178,7 @@ def phase_kernels():
     import torch.nn.functional as F
     from uninext_tpu_torch.models import vit
     from uninext_tpu_torch.ops import msda, nms
+    from uninext_tpu_torch.tools import event_ms
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     # fp32: only the order of fp32 sums differs. bf16: both read the same
@@ -165,40 +187,66 @@ def phase_kernels():
     tol = {torch.float32: 5e-5, torch.bfloat16: 3.2e-2}
     rec = {}
 
-    # kernel A: global blocks (1, 50x76 grid) and windowed blocks (24 windows of 14x14)
+    # kernel A: global blocks (1, 50x76 grid) and windowed blocks (24 windows
+    # of 14x14); bf16 on the tensor cores ("rel_pos_flash_attn"), fp32 on the
+    # CUDA cores ("rel_pos_flash_attn_fp32"). Each dtype must take its own
+    # route. The tensor-core kernel also rounds P to bf16 before P.V (2^-9
+    # of each term of a weighted mean), far below the output's rounding.
     H, W = IMAGE_HW[0] // 16, IMAGE_HW[1] // 16
+    routes = {torch.bfloat16: ("rel_pos_flash_attn", vit.rel_pos_flash_attn_mma),
+              torch.float32: ("rel_pos_flash_attn_fp32", vit.rel_pos_flash_attn_fp32)}
     for label, (B, h, w) in (("global", (1, H, W)), ("window", (24, 14, 14))):
         nh, hd = 16, 80
+        S = h * w
         base, rh, rw = _attention_inputs(dev, g, B, h, w, nh, hd)
         for dt in (torch.float32, torch.bfloat16):
+            name, route = routes[dt]
             q, k, v = base.to(dt).unbind(2)
             q5 = q.reshape(B, h, w, nh, hd)
             args = (q5, k, v, rh.to(dt), rw.to(dt), hd ** -0.5)
+            before = {n: r.launches for n, r in routes.values()}
             got = vit.flash_rel_pos_attention(*args)
+            moved = {n: r.launches - before[n] for n, r in routes.values()}
+            if moved != {n: int(n == name) for n in moved}:
+                raise AssertionError(f"kernel A {label} {dt}: launches by route {moved}")
             want = vit.rel_pos_attention_plain(*args)
-            err = _check(f"rel_pos_flash_attn {label} {dt}", got, want, tol[dt])
-            ms = _timed(lambda: vit.flash_rel_pos_attention(*args), 5)
+            err = _check(f"{name} {label} {dt}", got, want, tol[dt])
+            ms = _timed(lambda: vit.flash_rel_pos_attention(*args),
+                        20 if dt == torch.bfloat16 else 5)
             pms = _timed(lambda: vit.rel_pos_attention_plain(*args), 3)
-            print(f"[kernel A] rel_pos_flash_attn {label} B={B} {h}x{w} nh={nh} "
-                  f"hd={hd} {str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol[dt]}) "
-                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
+            del got, want
+            e = 2 if dt == torch.bfloat16 else 4
+            b_ms, b_by = _bound(
+                e * (4 * B * S * nh * hd + h * h * hd + w * w * hd),
+                B * nh * (4 * S * S * hd + 2 * S * (h + w) * hd),
+                "bf16" if dt == torch.bfloat16 else "fp32")
+            sq, sk, sv, bias = _sdpa_args(q5, k, v, rh.to(dt), rw.to(dt))
+            lib = _timed(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias),
+                         20 if dt == torch.bfloat16 else 5)
+            del sq, sk, sv, bias
             if dt == torch.bfloat16:
-                r = rec.setdefault("rel_pos_flash_attn", {"max_abs_err": 0.0})
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                if label == "global":
-                    S = h * w
-                    sq, sk, sv, bias = _sdpa_args(q5, k, v, rh.to(dt), rw.to(dt))
-                    lib = _timed(lambda: F.scaled_dot_product_attention(
-                        sq, sk, sv, attn_mask=bias), 5)
-                    del bias
-                    b_ms, b_by = _bound(
-                        2 * (4 * B * S * nh * hd + h * h * hd + w * w * hd),
-                        B * nh * (4 * S * S * hd + 2 * S * (h + w) * hd), "bf16")
-                    r.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms,
-                             bound_by=b_by, shape=f"global B={B} {h}x{w} bf16")
-                    print(f"[kernel A] bound {b_ms:.4f} ms ({b_by}); library "
-                          f"scaled_dot_product_attention with a float bias mask: "
-                          f"{lib:.3f} ms")
+                # the wrapper's library part alone, over CUDA graph replays
+                bias_ms = event_ms(lambda: vit.rel_pos_bias(q5, rh.to(dt), rw.to(dt)))
+                print(f"[kernel A] {name} {label}: of the wrapper, the bias products "
+                      f"bh = q.Rh, bw = q.Rw (rel_pos_bias, CUDA graph replays) "
+                      f"{bias_ms:.4f} ms")
+            print(f"[kernel A] {name} {label} B={B} {h}x{w} nh={nh} hd={hd} "
+                  f"{str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol[dt]}) wrapper "
+                  f"(bias products and kernel) {ms:.4f} ms ({100 * b_ms / ms:.1f}% of "
+                  f"its bound {b_ms:.4f} ms, "
+                  f"{b_by}), plain {pms:.3f} ms; library scaled_dot_product_attention "
+                  f"with a float bias mask built outside the timing: {lib:.4f} ms")
+            r = rec.setdefault(name, {"max_abs_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            if label == "global":
+                r.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                         shape=f"global B={B} {h}x{w} {str(dt)[6:]}")
+            else:
+                r.update(window_ms=ms, window_library_ms=lib, window_bound_ms=b_ms)
+            torch.cuda.empty_cache()
+    a = rec["rel_pos_flash_attn"]
+    print(f"[kernel A] tensor-core route, global block: {a['ms']:.4f} ms against SDPA's "
+          f"{a['library_ms']:.4f} ms in this run")
 
     # kernel B: encoder (Lq = S = 20197) and decoder (Lq = 900) calls
     shapes = _msda_shapes()
@@ -593,7 +641,8 @@ def _tiny_vit_config():
 
 def phase_small_reference():
     """A small model, same weights: kernels on the card vs plain on the CPU,
-    in serving and in one train step."""
+    in serving and in one train step, fp32. Returns the kernel launches of
+    this path (kernel A's fp32 route is the path's own)."""
     import copy
 
     import numpy as np
@@ -609,6 +658,9 @@ def phase_small_reference():
         for p in cpu.parameters():
             p.add_(0.02 * torch.randn(p.shape, generator=g))
     gpu = copy.deepcopy(cpu).to("cuda")
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
     rng = np.random.RandomState(0)
     images = torch.from_numpy(rng.randn(2, 128, 160, 3).astype(np.float32))
     mask = torch.zeros(2, 128, 160, dtype=torch.bool)
@@ -671,12 +723,19 @@ def phase_small_reference():
     print(f"[reference] small ViT train step, fp32, card (A, A-bwd, B, B-bwd) vs "
           f"CPU (plain): {len(cl)} losses, max rel err {loss_err:.3g} (tol 1e-4); "
           f"{len(cp)} gradients, max err / leaf max {grad_err:.3g} (tol 1e-3)")
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[reference] kernel launches on the small reference path: {launches}")
+    if launches["rel_pos_flash_attn"] or not launches["rel_pos_flash_attn_fp32"]:
+        raise AssertionError("the fp32 reference path must take kernel A's fp32 route only")
+    return launches
 
 
 def _counters():
     from uninext_tpu_torch.models import vit
     from uninext_tpu_torch.ops import dma_gather, gather_fold, msda, nms
-    return {"rel_pos_flash_attn": vit.flash_rel_pos_attention,
+    return {"rel_pos_flash_attn": vit.rel_pos_flash_attn_mma,
+            "rel_pos_flash_attn_fp32": vit.rel_pos_flash_attn_fp32,
             "rel_pos_flash_attn_bwd": vit.rel_pos_flash_attn_bwd,
             "ms_deform_attn_fwd": msda.ms_deform_attn,
             "ms_deform_attn_bwd": msda.ms_deform_attn_bwd,
@@ -696,9 +755,10 @@ def _prompt(cfg):
     return create_label_token_map(COCO_CATEGORIES, BertTokenizer(), cfg.language.max_len)
 
 
-def phase_serving():
-    """The slice at full width: 4 requests through forward + postprocess.
-    Returns the launch counts of the 4 requests."""
+def phase_serving(profile: bool):
+    """The slice at full width: 4 requests through forward + postprocess
+    (with `profile`, one more under the profiler). Returns the launch counts
+    of the 4 requests."""
     import torch
     from uninext_tpu_torch.config import image_joint_vit_huge
     from uninext_tpu_torch.models.detr import build_model
@@ -758,6 +818,12 @@ def phase_serving():
     for counts in per_request:
         if counts != expect:
             raise AssertionError(f"launches per request {counts} != {expect}")
+    if profile:
+        img, pad, sizes = requests[1]
+        with torch.inference_mode():
+            _profile(lambda: postprocess_detection(
+                model(img, pad, sizes, None, lang["masks"], lang_dict=lang), cmap_t),
+                "one serving request")
     del model, lang, requests, out, post
     torch.cuda.empty_cache()
     return launches
@@ -899,22 +965,22 @@ def phase_training(profile: bool):
             raise AssertionError(f"launches per step {counts} (recomputes {rcounts}) "
                                  f"!= {expect} ({expect_recompute})")
     if profile:
-        _profile_step(state, batch)
+        _profile(lambda: train_step(state, batch), "one train step")
     del state, batch
     torch.cuda.empty_cache()
     return launches
 
 
-def _profile_step(state, batch):
-    """One more step under torch.profiler: device time by kernel and the
-    device's idle share over the step (union of kernel intervals)."""
+def _profile(fn, label):
+    """`fn` once more under torch.profiler: its host time, the device's
+    busy time and idle share over the span of its kernels (union of kernel
+    intervals), and the device time of its 25 largest kernels by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from uninext_tpu_torch.engine.train import train_step
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_step(state, batch)
+        fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events()
@@ -935,7 +1001,7 @@ def _profile_step(state, batch):
         by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                       - e.time_range.start) / 1e3
     total = sum(by_name.values())
-    print(f"[profile] one train step: host {host_ms:.1f} ms, device span {span:.1f} ms, "
+    print(f"[profile] {label}: host {host_ms:.1f} ms, device span {span:.1f} ms, "
           f"kernel time {total:.1f} ms, device busy {busy / 1e3:.1f} ms "
           f"(idle share {100 * (1 - busy / 1e3 / span) if span else 0:.1f}%)")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
@@ -943,8 +1009,10 @@ def _profile_step(state, batch):
 
 
 SOURCES = {
-    "rel_pos_flash_attn": ("uninext_tpu_torch/csrc/rel_pos_flash_attn.cu",
+    "rel_pos_flash_attn": ("uninext_tpu_torch/csrc/rel_pos_flash_attn_mma.cu",
                            "uninext_tpu/models/vit.py:131"),
+    "rel_pos_flash_attn_fp32": ("uninext_tpu_torch/csrc/rel_pos_flash_attn.cu",
+                                "uninext_tpu/models/vit.py:131 (fp32 inputs)"),
     "rel_pos_flash_attn_bwd": (
         "uninext_tpu_torch/csrc/rel_pos_flash_attn_bwd.cu",
         "uninext_tpu/models/vit.py:131 under jax.grad: jax/experimental/pallas/ops/"
@@ -982,14 +1050,14 @@ def main():
     rec.update(phase_backward_kernels())
     lab_rec, lab = phase_labs()
     rec.update(lab_rec)
-    phase_small_reference()
-    serving = phase_serving()
+    reference = phase_small_reference()
+    serving = phase_serving(profile)
     training = phase_training(profile)
     import torch
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         by_path = {"serving": serving[name], "training": training[name],
-                   "lab": lab[name]}
+                   "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
         r = rec[name]
@@ -998,7 +1066,9 @@ def main():
                         "launches_by_path": by_path,
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "shape")},
-                        **({"max_rel_err": r["max_rel_err"]} if "max_rel_err" in r else {})})
+                        "bound_share": r["bound_ms"] / r["ms"],
+                        **{k: r[k] for k in ("max_rel_err", "window_ms", "window_library_ms",
+                                             "window_bound_ms") if k in r}})
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

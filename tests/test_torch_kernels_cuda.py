@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (A, A-bwd, B, B-bwd, C, and the labs' fold,
-gather and DMA-probe kernels) vs their plain PyTorch versions, on the card. A backward kernel is held to autograd through the
+"""The port's CUDA kernels (A on both routes, A-bwd, B, B-bwd, C, and the
+labs' fold, gather and DMA-probe kernels) vs their plain PyTorch versions,
+on the card. A backward kernel is held to autograd through the
 plain version of its forward.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
@@ -11,7 +12,9 @@ never at import). On the card:
 Tolerances: fp32 kernels against fp32 plain versions differ only in the
 order of their fp32 sums; bf16 kernels read the same bf16 inputs as the
 plain versions (which compute in fp32) and may differ by one bf16 rounding
-of the output. Gradients are compared relative to their largest entry:
+of the output (kernel A's tensor-core route also rounds each probability
+to bf16 before the P.V product, as the Pallas kernel does: 2^-9 of each
+term of a weighted mean, far below that rounding). Gradients are compared relative to their largest entry:
 fp32 differs in summation order (B-bwd adds dvalue with atomics, in an
 order that changes from run to run); bf16 gradients are rounded to bf16 on
 both sides.
@@ -41,24 +44,75 @@ def dev():
 TOL = {torch.float32: 2e-5, torch.bfloat16: 3.2e-2}   # bf16: 1 ulp at |x| < 8
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,H,W,nh,hd", [(2, 9, 11, 4, 8), (3, 14, 14, 4, 80),
-                                         (1, 50, 76, 2, 80)])
-def test_rel_pos_flash_attn_matches_plain(dev, dtype, B, H, W, nh, hd):
+# kernel A's shapes: ragged grids (S = 99, 91), hd 8 (padded to one mma
+# k-step), 64, 80 (ViT-H) and 128, the 50 x 76 global grid of an 800x1216
+# image and 24 windows of 14 x 14 at ViT-H's 16 heads
+A_CASES = [(2, 9, 11, 4, 8), (3, 14, 14, 4, 80), (1, 50, 76, 2, 80),
+           (1, 7, 13, 2, 64), (1, 7, 13, 2, 128), (24, 14, 14, 16, 80)]
+
+
+def _attention_case(dev, dtype, B, H, W, nh, hd):
     g = torch.Generator(device=dev).manual_seed(B * H + hd)
     S = H * W
     qkv = torch.randn(B, S, 3, nh, hd, device=dev, generator=g).to(dtype)
     q, k, v = qkv.unbind(2)                      # strided views, as in Attention
     Rh = (0.1 * torch.randn(H, H, hd, device=dev, generator=g)).to(dtype)
     Rw = (0.1 * torch.randn(W, W, hd, device=dev, generator=g)).to(dtype)
-    q5 = q.reshape(B, H, W, nh, hd)
-    before = vit.flash_rel_pos_attention.launches
+    return q.reshape(B, H, W, nh, hd), k, v, Rh, Rw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,nh,hd", A_CASES)
+def test_rel_pos_flash_attn_matches_plain(dev, dtype, B, H, W, nh, hd):
+    """Each dtype takes its own route and moves only its own counter: bf16
+    the tensor-core kernel, fp32 the CUDA-core kernel."""
+    q5, k, v, Rh, Rw = _attention_case(dev, dtype, B, H, W, nh, hd)
+    routes = (vit.flash_rel_pos_attention, vit.rel_pos_flash_attn_mma,
+              vit.rel_pos_flash_attn_fp32)
+    before = [r.launches for r in routes]
     got = vit.flash_rel_pos_attention(q5, k, v, Rh, Rw, hd ** -0.5)
-    assert vit.flash_rel_pos_attention.launches == before + 1
+    bf16 = dtype == torch.bfloat16
+    assert [r.launches - b for r, b in zip(routes, before)] == [1, int(bf16), int(not bf16)]
     want = vit.rel_pos_attention_plain(q5, k, v, Rh, Rw, hd ** -0.5)
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.shape == (B, H, W, nh * hd)
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("B,H,W,nh,hd", A_CASES)
+def test_rel_pos_flash_attn_mma_lse_matches_logsumexp(dev, B, H, W, nh, hd):
+    """The tensor-core kernel's lse is the natural-log logsumexp of the
+    biased scores, which A-bwd reads. Reference: torch.logsumexp of fp32
+    scores from the same bf16 inputs. Tolerance 1e-4: the products are
+    exact in fp32 and the sums of at most 128 terms and the base-2
+    exponentials differ in rounding only (|lse| < 20)."""
+    q5, k, v, Rh, Rw = _attention_case(dev, torch.bfloat16, B, H, W, nh, hd)
+    scale = hd ** -0.5
+    _, lse = vit.rel_pos_flash_attn_fwd(q5, k, v, Rh, Rw, scale, with_lse=True)
+    S = H * W
+    qf = q5.float()
+    scores = torch.einsum("byxhd,bkhd->bhyxk", qf * scale, k.float())
+    bh = torch.einsum("byxhd,yid->bhyxi", qf, Rh.float())
+    bw = torch.einsum("byxhd,xjd->bhyxj", qf, Rw.float())
+    scores = (scores.reshape(B, nh, H, W, H, W) + bh[..., :, None]
+              + bw[..., None, :]).reshape(B, nh, S, S)
+    want = torch.logsumexp(scores, -1)
+    torch.cuda.synchronize()
+    assert lse.shape == (B, nh, S) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, want, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("hd", [12, 136])
+def test_rel_pos_flash_attn_mma_refuses_other_head_dims(dev, hd):
+    """bf16 with hd not a multiple of 8, or above 128, raises: it is
+    launched on no kernel (neither route counts it)."""
+    q5, k, v, Rh, Rw = _attention_case(dev, torch.bfloat16, 1, 5, 6, 2, hd)
+    routes = (vit.flash_rel_pos_attention, vit.rel_pos_flash_attn_mma,
+              vit.rel_pos_flash_attn_fp32)
+    before = [r.launches for r in routes]
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        vit.flash_rel_pos_attention(q5, k, v, Rh, Rw, hd ** -0.5)
+    assert [r.launches for r in routes] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

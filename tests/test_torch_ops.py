@@ -255,6 +255,29 @@ def test_rel_pos_plain_matches_jax_flash_formulation(monkeypatch):
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rel_pos_bias_matches_einsums(dtype):
+    """Kernel A's bias tables (two batched products, read by the kernels
+    through their strides) equal the einsums of the plain version, from the
+    slices of one qkv tensor as in Attention. fp32 products of at most 8
+    terms: 1e-5."""
+    B, H, W, nh, hd = 2, 5, 7, 3, 8
+    rng = np.random.RandomState(16)
+    qkv = torch.from_numpy(rng.randn(B, H * W, 3, nh, hd).astype(np.float32)).to(dtype)
+    q = qkv.unbind(2)[0].reshape(B, H, W, nh, hd)
+    Rh = torch.from_numpy(rng.randn(H, H, hd).astype(np.float32)).to(dtype)
+    Rw = torch.from_numpy(rng.randn(W, W, hd).astype(np.float32)).to(dtype)
+    bh, bw = vit.rel_pos_bias(q, Rh, Rw)
+    assert bh.dtype == bw.dtype == torch.float32
+    assert bh.shape == (B, nh, H, W, H) and bw.shape == (B, nh, H, W, W)
+    assert bh.stride(-1) == bw.stride(-1) == 1
+    qf = q.float()
+    torch.testing.assert_close(bh, torch.einsum("byxhd,yid->bhyxi", qf, Rh.float()),
+                               rtol=0, atol=1e-5)
+    torch.testing.assert_close(bw, torch.einsum("byxhd,xjd->bhyxj", qf, Rw.float()),
+                               rtol=0, atol=1e-5)
+
+
 def test_rel_pos_wrapper_runs_plain_on_cpu_and_counts_nothing():
     q, k, v, Rh, Rw = (torch.from_numpy(a) for a in _attn_inputs(11, 5, 6))
     got = vit.flash_rel_pos_attention(q, k, v, Rh, Rw, 0.3)

@@ -1,5 +1,9 @@
-// Kernel A: ViTDet attention with the decomposed relative-position bias,
-// computed flash-style (online softmax, nothing attention-sized in memory).
+// Kernel A, fp32 route: ViTDet attention with the decomposed
+// relative-position bias, computed flash-style (online softmax, nothing
+// attention-sized in memory), on the fp32 CUDA cores. bf16 inputs take the
+// tensor-core kernel in rel_pos_flash_attn_mma.cu; this one takes fp32 only.
+// No preset path runs it (the presets compute in bf16); the card-vs-CPU
+// checks in fp32 do.
 //
 // Replaces: uninext_tpu/models/vit.py:131 flash_rel_pos_attention, which
 // runs the stock Pallas TPU flash kernel after folding the bias into the
@@ -23,14 +27,12 @@
 // No one-hot features and no head_dim padding: hd = 80 and the ragged last
 // tiles are handled with bounds checks and -inf masking.
 //
-// What bounds it on the H100: this first version multiplies on the fp32
-// CUDA cores (no tensor cores), reading both operands of every product from
-// shared memory, so it is bound by shared-memory bandwidth and fp32 issue
-// rate, far below the bf16 tensor-core roofline (ViT-H global block at
-// 800x1216: 2 * 2 * 3800^2 * 80 * 16 = 74 GFLOP). The register tiling
-// (4 x 4 scores, 4 x 5 outputs per thread) halves the shared-memory reads
-// per multiply-add against one row per thread. Moving the two products to
-// wgmma/mma.sync in bf16 is later work.
+// What bounds it on the H100: it multiplies on the fp32 CUDA cores, reading
+// both operands of every product from shared memory, so it is bound by
+// shared-memory bandwidth and the fp32 issue rate (fp32 roofline of the
+// ViT-H global block at 800x1216: 74 GFLOP at 67 TFLOP/s, 1.1 ms). The
+// register tiling (4 x 4 scores, 4 x 5 outputs per thread) halves the
+// shared-memory reads per multiply-add against one row per thread.
 #include "common.cuh"
 
 namespace {
@@ -43,10 +45,10 @@ constexpr int CPT = MAX_HD / 16;  // output columns per thread at MAX_HD
 
 // WITH_LSE: write the per-row logsumexp (training); the serving build of the
 // kernel has no trace of it.
-template <typename T, bool WITH_LSE>
+template <bool WITH_LSE>
 __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ rh, const T* __restrict__ rw, T* __restrict__ out,
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ rh, const float* __restrict__ rw, float* __restrict__ out,
     float* __restrict__ lse, int H, int W, int nh, int hd, long long sb, long long ss, long long sh,
     float scale) {
   extern __shared__ float smem[];
@@ -66,14 +68,14 @@ __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
   float* bhs = ps + BQ * (BK + 1);    // BQ x H
   float* bws = bhs + BQ * H;          // BQ x W
 
-  const T* qb = q + b * sb + h * sh;
-  const T* kb = k + b * sb + h * sh;
-  const T* vb = v + b * sb + h * sh;
+  const float* qb = q + b * sb + h * sh;
+  const float* kb = k + b * sb + h * sh;
+  const float* vb = v + b * sb + h * sh;
 
   for (int e = tid; e < BQ * hd; e += NT) {
     const int r = e / hd, d = e - r * hd;
     const int s = q0 + r;
-    qs[r * ld + d] = s < S ? to_f32(qb[s * ss + d]) : 0.f;
+    qs[r * ld + d] = s < S ? qb[s * ss + d] : 0.f;
   }
   __syncthreads();
 
@@ -82,10 +84,10 @@ __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
     const int r = e / (H + W), c = e - r * (H + W);
     const int s = min(q0 + r, S - 1);
     const int y = s / W, x = s - y * W;
-    const T* tab = c < H ? rh + ((long long)y * H + c) * hd
+    const float* tab = c < H ? rh + ((long long)y * H + c) * hd
                          : rw + ((long long)x * W + (c - H)) * hd;
     float acc = 0.f;
-    for (int d = 0; d < hd; ++d) acc += qs[r * ld + d] * to_f32(tab[d]);
+    for (int d = 0; d < hd; ++d) acc += qs[r * ld + d] * tab[d];
     if (c < H) bhs[r * H + c] = acc; else bws[r * W + (c - H)] = acc;
   }
 
@@ -105,8 +107,8 @@ __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
       const int s = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (s < S) {
-        kv = to_f32(kb[s * ss + d]);
-        vv = to_f32(vb[s * ss + d]);
+        kv = kb[s * ss + d];
+        vv = vb[s * ss + d];
       }
       ks[r * ld + d] = kv;
       vs[r * hd + d] = vv;
@@ -192,56 +194,48 @@ __global__ void __launch_bounds__(NT) rel_pos_flash_attn_kernel(
     if (s >= S) continue;
     const float inv = 1.f / l_run[i];
     if (WITH_LSE && tx == 0) lse[(b * nh + h) * S + s] = m_run[i] + logf(l_run[i]);
-    T* o = out + ((b * S + s) * nh + h) * hd;
+    float* o = out + ((b * S + s) * nh + h) * hd;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       const int col = tx + 16 * c;
-      if (col < hd) o[col] = from_f32<T>(acc[i][c] * inv);
+      if (col < hd) o[col] = acc[i][c] * inv;
     }
   }
 }
 
-template <typename T, bool WITH_LSE>
-int launch(const void* q, const void* k, const void* v, const void* rh,
-           const void* rw, void* out, float* lse, int B, int H, int W, int nh, int hd,
+template <bool WITH_LSE>
+int launch(const float* q, const float* k, const float* v, const float* rh,
+           const float* rw, float* out, float* lse, int B, int H, int W, int nh, int hd,
            long long sb, long long ss, long long sh, float scale,
            cudaStream_t stream) {
   const int S = H * W;
   const size_t smem = sizeof(float) *
       (size_t)(BQ * (hd + 1) + BK * (hd + 1) + BK * hd + BQ * (BK + 1) + BQ * (H + W));
   cudaError_t err = cudaFuncSetAttribute(
-      rel_pos_flash_attn_kernel<T, WITH_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      rel_pos_flash_attn_kernel<WITH_LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + BQ - 1) / BQ, nh, B);
-  rel_pos_flash_attn_kernel<T, WITH_LSE><<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)rh, (const T*)rw, (T*)out,
-      lse, H, W, nh, hd, sb, ss, sh, scale);
+  rel_pos_flash_attn_kernel<WITH_LSE><<<grid, NT, smem, stream>>>(
+      q, k, v, rh, rw, out, lse, H, W, nh, hd, sb, ss, sh, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: (B, H*W, nh, hd) with element strides (sb, ss, sh, 1), shared by
-// the three; rh: (H, H, hd); rw: (W, W, hd); out: (B, H*W, nh*hd)
-// contiguous. All of dtype `dtype` (UNINEXT_F32 or UNINEXT_BF16). `lse`:
-// null, or (B, nh, H*W) fp32 for the per-row logsumexp.
-extern "C" int rel_pos_flash_attn(const void* q, const void* k, const void* v,
-                                  const void* rh, const void* rw, void* out,
+// q, k, v: fp32 (B, H*W, nh, hd) with element strides (sb, ss, sh, 1),
+// shared by the three; rh: (H, H, hd); rw: (W, W, hd); out: (B, H*W,
+// nh*hd) contiguous, all fp32. `lse`: null, or (B, nh, H*W) fp32 for the
+// per-row logsumexp.
+extern "C" int rel_pos_flash_attn(const float* q, const float* k, const float* v,
+                                  const float* rh, const float* rw, float* out,
                                   float* lse, int B, int H, int W, int nh, int hd,
                                   long long sb, long long ss, long long sh,
-                                  float scale, int dtype, void* stream) {
+                                  float scale, void* stream) {
   if (hd > MAX_HD || hd < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == UNINEXT_F32)
-    return lse ? launch<float, true>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss, sh, scale, st)
-               : launch<float, false>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss, sh, scale, st);
-  if (dtype == UNINEXT_BF16)
-    return lse ? launch<__nv_bfloat16, true>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss,
-                                             sh, scale, st)
-               : launch<__nv_bfloat16, false>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss,
-                                              sh, scale, st);
-  return (int)cudaErrorInvalidValue;
+  return lse ? launch<true>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss, sh, scale, st)
+             : launch<false>(q, k, v, rh, rw, out, lse, B, H, W, nh, hd, sb, ss, sh, scale, st);
 }
 
 // shared memory bytes the kernel asks for at these sizes (the wrapper checks

@@ -2,9 +2,10 @@
 `uninext_tpu/models/vit.py`.
 
 Every block's attention goes through `flash_rel_pos_attention`, the wrapper
-of kernel A (`csrc/rel_pos_flash_attn.cu`): on a CUDA tensor both the global
-blocks (the whole grid) and the windowed blocks (14 x 14 windows as a batch)
-launch it. The JAX package's `H*W >= 2048` flash gate and its q-row
+of kernel A: on a CUDA tensor both the global blocks (the whole grid) and
+the windowed blocks (14 x 14 windows as a batch) launch it, in bf16 on the
+tensor cores (`csrc/rel_pos_flash_attn_mma.cu`), in fp32 on the CUDA cores
+(`csrc/rel_pos_flash_attn.cu`); each route counts its own launches. The JAX package's `H*W >= 2048` flash gate and its q-row
 chunking were decisions for the TPU and are not carried over. Under
 autograd the wrapper is a `torch.autograd.Function` whose backward is
 kernel A-bwd (`csrc/rel_pos_flash_attn_bwd.cu`).
@@ -20,6 +21,8 @@ that makes res3).
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 from typing import Dict, Optional, Sequence
 
@@ -116,62 +119,164 @@ def _check_attention_inputs(q, k, v, Rh, Rw):
     return q3
 
 
-def _smem_check(lib, fn_name: str, H: int, W: int, hd: int, dev) -> None:
-    fn = getattr(lib, fn_name)
+def _dev_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_check(lib_name: str, H: int, W: int, hd: int, dev_index: int) -> None:
+    """Raise if the kernel's shared memory at these sizes exceeds the card's
+    limit (memoised: a check per shape, not per launch)."""
+    fn = getattr(_build.library(lib_name), f"{lib_name}_smem_bytes")
     fn.argtypes = [_build.I] * 3
     fn.restype = _build.LL
     smem = fn(H, W, hd)
-    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    limit = torch.cuda.get_device_properties(dev_index).shared_memory_per_block_optin
     if hd > 128 or smem > limit:
-        raise ValueError(f"{fn_name}: hd={hd}, grid {H}x{W} needs {smem} B of "
+        raise ValueError(f"{lib_name}: hd={hd}, grid {H}x{W} needs {smem} B of "
                          f"shared memory (limit {limit}, hd <= 128)")
 
 
-def rel_pos_flash_attn_fwd(q, k, v, Rh, Rw, scale: float, with_lse: bool = False):
-    """Launch kernel A on CUDA tensors (no autograd). Returns the output
-    (B, H, W, nh*hd) and, with `with_lse`, the per-row logsumexp (B, nh, S)
-    fp32 (else None)."""
+# ctypes signatures of the C entry points: pointers, ints, strides, [the
+# bias tables' strides], scale, [dtype], stream
+_P, _I, _LL, _F = _build.P, _build.I, _build.LL, _build.F
+_LLP = ctypes.POINTER(ctypes.c_longlong)
+_SIGNATURES = {
+    "rel_pos_flash_attn_mma": [_P] * 7 + [_I] * 5 + [_LL] * 3 + [_LLP] * 2 + [_F, _P],
+    "rel_pos_flash_attn": [_P] * 7 + [_I] * 5 + [_LL] * 3 + [_F, _P],
+    "rel_pos_flash_attn_bwd": [_P] * 13 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P],
+}
+
+
+def _strides(t) -> ctypes.Array:
+    """The strides of a bias table but its unit last one, for the C side."""
+    return (ctypes.c_longlong * 4)(*t.stride()[:4])
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(name: str):
+    """The C entry point `name` of library `name`, its signature set once."""
+    fn = getattr(_build.library(name), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = _build.I
+    return fn
+
+
+def rel_pos_bias(q, Rh, Rw):
+    """The decomposed rel-pos bias of kernel A's scores, fp32, from the
+    unscaled q: bh[b,h,y,x,i] = q[b,y,x,h].Rh[y,i] (B, nh, H, W, H) and
+    bw[b,h,y,x,j] = q[b,y,x,h].Rw[x,j] (B, nh, H, W, W), as strided views
+    with a unit last stride. Each is one batched product (over grid rows y
+    for bh, grid columns x for bw), fp32 out of bf16 inputs, whose output
+    the kernels read where it lies. The JAX package, too, forms them with
+    einsums outside its Pallas call."""
     B, H, W, nh, hd = q.shape
-    dev = q.device
-    dtype = _build.dtype_code(q)
+    qy = q.permute(1, 0, 2, 3, 4).reshape(H, B * W * nh, hd)
+    qx = q.permute(2, 0, 1, 3, 4).reshape(W, B * H * nh, hd)
+    bh = _bmm_f32(qy, Rh.transpose(1, 2)).view(H, B, W, nh, H)
+    bw = _bmm_f32(qx, Rw.transpose(1, 2)).view(W, B, H, nh, W)
+    return bh.permute(1, 3, 0, 2, 4), bw.permute(1, 3, 2, 0, 4)
+
+
+def _bmm_f32(a, b):
+    """a @ b in fp32: bf16 inputs multiply exactly and sum in fp32."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
+def _count_forward(route) -> None:
+    route.launches += 1
+    flash_rel_pos_attention.launches += 1
+    if recomputing():
+        flash_rel_pos_attention.recompute_launches += 1
+
+
+def rel_pos_flash_attn_mma(q, k, v, Rh, Rw, scale: float, with_lse: bool = False):
+    """Kernel A's bf16 route (`csrc/rel_pos_flash_attn_mma.cu`, tensor
+    cores) on CUDA tensors, no autograd; the bias tables from
+    `rel_pos_bias`. Takes bf16 with hd a multiple of 8 up to 128 and
+    16-byte aligned q, k, v rows, and raises ValueError for any other bf16
+    input (no other kernel takes it). Returns as `rel_pos_flash_attn_fwd`."""
+    B, H, W, nh, hd = q.shape
+    S = H * W
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"rel_pos_flash_attn_mma: takes bfloat16, got {q.dtype}")
+    if hd % 8 or not 8 <= hd <= 128:
+        raise ValueError(f"rel_pos_flash_attn_mma: hd={hd}; the tensor-core kernel "
+                         "takes a multiple of 8 up to 128")
+    if H * (W + 7) // 8 * 8 + 64 > 1 << 22:
+        raise ValueError(f"rel_pos_flash_attn_mma: grid {H}x{W} is too large")
     q3 = _check_attention_inputs(q, k, v, Rh, Rw)
-    lib = _build.library("rel_pos_flash_attn")
-    _smem_check(lib, "rel_pos_flash_attn_smem_bytes", H, W, hd, dev)
+    if any(t.data_ptr() % 16 for t in (q3, k, v)) or any(st % 8 for st in q3.stride()[:3]):
+        raise ValueError("rel_pos_flash_attn_mma: q, k, v rows must be 16-byte aligned")
+    dev = q.device
+    _smem_check("rel_pos_flash_attn_mma", H, W, hd, _dev_index(dev))
+    bh, bw = rel_pos_bias(q, Rh, Rw)
+    out = torch.empty((B, H, W, nh * hd), dtype=q.dtype, device=dev)
+    lse = (torch.empty((B, nh, S), dtype=torch.float32, device=dev)
+           if with_lse else None)
+    sb, ss, sh, _ = q3.stride()
+    rc = _entry("rel_pos_flash_attn_mma")(
+        q3.data_ptr(), k.data_ptr(), v.data_ptr(), bh.data_ptr(), bw.data_ptr(),
+        out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, H, W, nh, hd,
+        sb, ss, sh, _strides(bh), _strides(bw), float(scale), _build.stream_of(q))
+    _build.check(_build.library("rel_pos_flash_attn_mma"), rc, "rel_pos_flash_attn_mma")
+    _count_forward(rel_pos_flash_attn_mma)
+    return out, lse
+
+
+def rel_pos_flash_attn_fp32(q, k, v, Rh, Rw, scale: float, with_lse: bool = False):
+    """Kernel A's fp32 route (`csrc/rel_pos_flash_attn.cu`, CUDA cores) on
+    CUDA tensors, no autograd. Returns as `rel_pos_flash_attn_fwd`."""
+    B, H, W, nh, hd = q.shape
+    if q.dtype != torch.float32:
+        raise ValueError(f"rel_pos_flash_attn_fp32: takes float32, got {q.dtype}")
+    dev = q.device
+    q3 = _check_attention_inputs(q, k, v, Rh, Rw)
+    _smem_check("rel_pos_flash_attn", H, W, hd, _dev_index(dev))
     out = torch.empty((B, H, W, nh * hd), dtype=q.dtype, device=dev)
     lse = (torch.empty((B, nh, H * W), dtype=torch.float32, device=dev)
            if with_lse else None)
     sb, ss, sh, _ = q3.stride()
-    fn = lib.rel_pos_flash_attn
-    fn.argtypes = ([_build.P] * 7 + [_build.I] * 5 + [_build.LL] * 3
-                   + [_build.F, _build.I, _build.P])
-    fn.restype = _build.I
-    rc = fn(q3.data_ptr(), k.data_ptr(), v.data_ptr(), Rh.data_ptr(),
-            Rw.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            B, H, W, nh, hd, sb, ss, sh, float(scale), dtype, _build.stream_of(q))
-    _build.check(lib, rc, "rel_pos_flash_attn")
-    flash_rel_pos_attention.launches += 1
-    if recomputing():
-        flash_rel_pos_attention.recompute_launches += 1
+    rc = _entry("rel_pos_flash_attn")(
+        q3.data_ptr(), k.data_ptr(), v.data_ptr(), Rh.data_ptr(), Rw.data_ptr(),
+        out.data_ptr(), 0 if lse is None else lse.data_ptr(), B, H, W, nh, hd,
+        sb, ss, sh, float(scale), _build.stream_of(q))
+    _build.check(_build.library("rel_pos_flash_attn"), rc, "rel_pos_flash_attn")
+    _count_forward(rel_pos_flash_attn_fp32)
     return out, lse
+
+
+def rel_pos_flash_attn_fwd(q, k, v, Rh, Rw, scale: float, with_lse: bool = False):
+    """Launch kernel A on CUDA tensors (no autograd): bf16 on the tensor
+    cores, fp32 on the CUDA cores; any other dtype raises. Returns the output
+    (B, H, W, nh*hd) and, with `with_lse`, the per-row natural-log
+    logsumexp of the biased scores (B, nh, S) fp32 (else None)."""
+    if q.dtype == torch.bfloat16:
+        return rel_pos_flash_attn_mma(q, k, v, Rh, Rw, scale, with_lse)
+    if q.dtype == torch.float32:
+        return rel_pos_flash_attn_fp32(q, k, v, Rh, Rw, scale, with_lse)
+    raise TypeError(f"flash_rel_pos_attention: kernels take float32 or bfloat16, "
+                    f"got {q.dtype}")
 
 
 def rel_pos_flash_attn_bwd(q, k, v, Rh, Rw, scale: float, out, lse, dout):
     """Launch kernel A-bwd on CUDA tensors: the gradients of
-    `rel_pos_flash_attn_fwd` for the output cotangent `dout`. The two
-    products of the bias, bh = q.Rh and bw = q.Rw, are formed here (fp32
-    einsums) for the kernels, and the chain rule through them is taken here
-    from the kernels' dbh and dbw. Returns (dq, dk, dv, dRh, dRw) in the
+    `rel_pos_flash_attn_fwd` for the output cotangent `dout`, from the
+    forward's logsumexp `lse`. The kernels read the bias tables of
+    `rel_pos_bias`, and the chain rule through bh = q.Rh and bw = q.Rw is
+    taken here from their dbh and dbw. Returns (dq, dk, dv, dRh, dRw) in the
     input dtype."""
     B, H, W, nh, hd = q.shape
     S = H * W
     dev = q.device
     dtype = _build.dtype_code(q)
     q3 = _check_attention_inputs(q, k, v, Rh, Rw)
-    lib = _build.library("rel_pos_flash_attn_bwd")
-    _smem_check(lib, "rel_pos_flash_attn_bwd_smem_bytes", H, W, hd, dev)
-    qf = q.float()
-    bh = torch.einsum("byxhd,yid->bhyxi", qf, Rh.float()).reshape(B, nh, S, H)
-    bw = torch.einsum("byxhd,xjd->bhyxj", qf, Rw.float()).reshape(B, nh, S, W)
+    _smem_check("rel_pos_flash_attn_bwd", H, W, hd, _dev_index(dev))
+    bh, bw = rel_pos_bias(q, Rh, Rw)
+    bh = bh.reshape(B, nh, S, H).contiguous()
+    bw = bw.reshape(B, nh, S, W).contiguous()
     dout4 = dout.reshape(B, S, nh, hd).to(q.dtype).contiguous()
     dsum = (dout4.float() * out.reshape(B, S, nh, hd).float()).sum(-1)
     dsum = dsum.transpose(1, 2).contiguous()                # (B, nh, S)
@@ -182,22 +287,20 @@ def rel_pos_flash_attn_bwd(q, k, v, Rh, Rw, scale: float, out, lse, dout):
     dbh = torch.empty((B, nh, S, H), **f32)
     dbw = torch.empty((B, nh, S, W), **f32)
     sb, ss, sh, _ = q3.stride()
-    fn = lib.rel_pos_flash_attn_bwd
-    fn.argtypes = ([_build.P] * 13 + [_build.I] * 5 + [_build.LL] * 3
-                   + [_build.F, _build.I, _build.P])
-    fn.restype = _build.I
-    rc = fn(q3.data_ptr(), k.data_ptr(), v.data_ptr(), dout4.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr(), bh.data_ptr(), bw.data_ptr(),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
-            dbw.data_ptr(), B, H, W, nh, hd, sb, ss, sh, float(scale), dtype,
-            _build.stream_of(q))
-    _build.check(lib, rc, "rel_pos_flash_attn_bwd")
+    rc = _entry("rel_pos_flash_attn_bwd")(
+        q3.data_ptr(), k.data_ptr(), v.data_ptr(), dout4.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(), bh.data_ptr(), bw.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
+        dbw.data_ptr(), B, H, W, nh, hd, sb, ss, sh, float(scale), dtype,
+        _build.stream_of(q))
+    _build.check(_build.library("rel_pos_flash_attn_bwd"), rc, "rel_pos_flash_attn_bwd")
     rel_pos_flash_attn_bwd.launches += 1
     dbh = dbh.reshape(B, nh, H, W, H)
     dbw = dbw.reshape(B, nh, H, W, W)
     dq = (dq.reshape(B, H, W, nh, hd)
           + torch.einsum("bhyxi,yid->byxhd", dbh, Rh.float())
           + torch.einsum("bhyxj,xjd->byxhd", dbw, Rw.float()))
+    qf = q.float()
     dRh = torch.einsum("bhyxi,byxhd->yid", dbh, qf)
     dRw = torch.einsum("bhyxj,byxhd->xjd", dbw, qf)
     dt = q.dtype
@@ -227,8 +330,9 @@ def flash_rel_pos_attention(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
     A-bwd); `rel_pos_attention_plain`, differentiable by autograd, on CPU
     tensors. Shapes as `rel_pos_attention_plain`. q, k and v must share
     their strides with a unit last stride (the slices of one qkv tensor do).
-    `launches` counts kernel A's launches; `recompute_launches` those of
-    them made while a checkpointed block is recomputed for the backward."""
+    `launches` counts kernel A's launches on either route (each route's
+    wrapper counts its own too); `recompute_launches` those of them made
+    while a checkpointed block is recomputed for the backward."""
     dev = q.device
     if dev.type == "cpu":
         return rel_pos_attention_plain(q, k, v, Rh, Rw, scale)
@@ -242,7 +346,10 @@ def flash_rel_pos_attention(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
 
 flash_rel_pos_attention.launches = 0
 flash_rel_pos_attention.recompute_launches = 0
+rel_pos_flash_attn_mma.launches = 0
+rel_pos_flash_attn_fp32.launches = 0
 rel_pos_flash_attn_bwd.launches = 0
+
 
 def drop_path_masks(batch: int, rate: float, generator: Optional[torch.Generator],
                     device) -> torch.Tensor:

@@ -13,6 +13,8 @@ The build happens at first use, from the repository's sources only, into
 carries a hash of its sources and flags, so an edited kernel is rebuilt and
 an unchanged one is loaded as it is. A loaded library is kept for the life
 of the process (`library` is memoised), so a launch costs no file reads.
+What nvcc printed (ptxas's registers and spills, for the libraries built
+with `-Xptxas -v`) is kept beside the library (`build_log`).
 """
 from __future__ import annotations
 
@@ -33,7 +35,9 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # per library: extra nvcc flags. NMS compares IoU near its threshold, so its
 # arithmetic must round op by op as the CPU does: no fused multiply-adds.
+# Kernel A's tensor-core route reports its registers and spills.
 KERNELS: Dict[str, Tuple[str, ...]] = {
+    "rel_pos_flash_attn_mma": ("-Xptxas", "-v"),
     "rel_pos_flash_attn": (),
     "rel_pos_flash_attn_bwd": (),
     "ms_deform_attn": (),
@@ -58,7 +62,7 @@ def _nvcc() -> str:
 
 
 def _sources(name: str):
-    return [CSRC / f"{name}.cu", CSRC / "common.cuh"]
+    return [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
 
 
 def library_path(name: str) -> Path:
@@ -91,6 +95,7 @@ def _finish_build(name: str, out: Path, proc, cmd, tmp) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n{' '.join(cmd)}\n"
                            f"{stdout}\n{stderr}")
+    out.with_suffix(".log").write_text(stdout + stderr)
     os.replace(tmp, out)        # atomic: concurrent builders never see half a file
     return out
 
@@ -113,6 +118,12 @@ def build_all() -> None:
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def build_log(name: str) -> str:
+    """What nvcc printed when it built the current library of `name`."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 @functools.cache
