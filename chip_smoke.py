@@ -8,15 +8,18 @@ Phases (each prints its lines and raises on failure, so the exit code is
 nonzero):
   1. device: the card's name and power limit (nvidia-smi), the build of
      the kernel libraries from `uninext_tpu_torch/csrc/` (one nvcc each,
-     all started together) and ptxas's registers and spills of kernel A's
-     tensor-core route;
+     all started together) and ptxas's registers and spills of the
+     tensor-core routes of kernels A and A-bwd;
   2. kernels: each forward kernel (A, B, C) against its plain PyTorch
      version on the card at the slice's shapes, in fp32 and bf16 (kernel A:
      bf16 on the tensor cores, fp32 on the CUDA cores), with both times
      (CUDA events), the least time the card could take (bound) and, where
      one exists, one PyTorch library call's time;
   3. backward kernels: A-bwd and B-bwd against autograd through the plain
-     versions at the training shapes, fp32 and bf16, timed the same way;
+     versions at the training shapes, fp32 and bf16 (A-bwd: bf16 on the
+     tensor cores, fp32 on the CUDA cores), timed the same way; A-bwd's
+     wrapper and its kernels alone also over CUDA graph replays, beside
+     the backward of SDPA with a float bias mask at both shapes;
   3b. labs: the labs' kernels in `csrc/gather_fold.cu` (the fold, TPU
      kernel B of `tools/msda_v6_lab.py`, and the gather probes C0-C2) and
      `csrc/dma_gather.cu` (the DMA probes C3, C4) against their plain
@@ -28,7 +31,7 @@ nonzero):
   4. correctness: a small model with the same weights on the card (kernels)
      and on the CPU (plain versions), fp32: the serving outputs, then one
      train step's losses and every gradient, with its launches counted as
-     path "reference" (the path of kernel A's fp32 route);
+     path "reference" (the path of the fp32 routes of kernels A and A-bwd);
   5. serving: `image_joint_vit_huge()` at full width with random weights
      from a seed, the 80-class COCO prompt encoded once, and 4 requests at
      800x1216 through forward and `postprocess_detection`, with the kernel
@@ -98,7 +101,8 @@ def phase_device():
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {len(_build.KERNELS)} kernel libraries "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
-    _print_ptxas(_build.build_log("rel_pos_flash_attn_mma"))
+    for name in ("rel_pos_flash_attn_mma", "rel_pos_flash_attn_bwd_mma"):
+        _print_ptxas(_build.build_log(name))
     return smi.stdout.strip().splitlines()[0]
 
 
@@ -308,6 +312,37 @@ def phase_kernels():
     return rec
 
 
+def _bwd_kernels_alone(q5, k, v, rh, rw, scale, out, lse, cot):
+    """A closure that launches A-bwd's kernels of q5's dtype alone, on
+    inputs prepared once as the wrapper prepares them (the bias tables, dO
+    rows, Dq, the outputs), so that its timing holds no bias products, Dq
+    or chain rule."""
+    import torch
+    from uninext_tpu_torch.models import vit
+    from uninext_tpu_torch.ops import _build
+    B, H, W, nh, hd = q5.shape
+    S = H * W
+    bf16 = q5.dtype == torch.bfloat16
+    name = "rel_pos_flash_attn_bwd_mma" if bf16 else "rel_pos_flash_attn_bwd"
+    q3 = q5.reshape(B, S, nh, hd)
+    bh, bw = vit.rel_pos_bias(q5, rh, rw)
+    dout4, dsum = vit._bwd_inputs(q5, out, cot)
+    dq = torch.empty(B, S, nh, hd, dtype=torch.float32, device=q5.device)
+    dk = torch.empty(B, S, nh, hd, dtype=q5.dtype, device=q5.device)
+    dv = torch.empty(B, S, nh, hd, dtype=q5.dtype, device=q5.device)
+    dbh, dbw = vit._bias_grad_buffers(bh, bw)
+    tensors = (q3, k, v, dout4, lse, dsum, bh, bw, dq, dk, dv, dbh, dbw)
+    args = (*(t.data_ptr() for t in tensors), B, H, W, nh, hd, *q3.stride()[:3],
+            *(dout4.stride()[:3] if bf16 else ()), vit._strides(bh), vit._strides(bw),
+            float(scale))
+    fn, lib = vit._entry(name), _build.library(name)
+
+    def run():
+        _build.check(lib, fn(*args, _build.stream_of(q5)), name)
+    run.tensors = tensors          # alive as long as the closure
+    return run
+
+
 def phase_backward_kernels():
     """A-bwd and B-bwd vs autograd through the plain versions at the
     training shapes (bs=2). Returns their records for the JSON line."""
@@ -315,22 +350,32 @@ def phase_backward_kernels():
     import torch.nn.functional as F
     from uninext_tpu_torch.models import vit
     from uninext_tpu_torch.ops import msda
+    from uninext_tpu_torch.tools import event_ms
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     # relative to each gradient's largest entry. fp32: summation order (B-bwd
     # adds dvalue with fp32 atomics, in an order that changes between runs).
     # bf16: each side rounds its gradients to bf16 once (2^-8 = 3.9e-3 of
-    # the value) after fp32 sums of other orders.
+    # the value) after fp32 sums of other orders; A-bwd's tensor-core
+    # kernels also round P and dS to bf16 before the products that read
+    # them, as the Pallas backward does.
     tol = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
     rec = {}
     B = TRAIN_BATCH
     H, W = IMAGE_HW[0] // 16, IMAGE_HW[1] // 16
     nh, hd = 16, 80
     windows = B * (-(-H // 14)) * (-(-W // 14))
+    # A-bwd: bf16 on the tensor cores ("rel_pos_flash_attn_bwd"), fp32 on
+    # the CUDA cores ("rel_pos_flash_attn_bwd_fp32"); each dtype must take
+    # its own route
+    routes = {torch.bfloat16: ("rel_pos_flash_attn_bwd", vit.rel_pos_flash_attn_bwd_mma),
+              torch.float32: ("rel_pos_flash_attn_bwd_fp32", vit.rel_pos_flash_attn_bwd_fp32)}
     for label, (Bw, h, w) in (("global", (B, H, W)), ("window", (windows, 14, 14))):
         base, rh0, rw0 = _attention_inputs(dev, g, Bw, h, w, nh, hd)
         S = h * w
         for dt in (torch.float32, torch.bfloat16):
+            name, _ = routes[dt]
+            bf16 = dt == torch.bfloat16
             cot = torch.randn(Bw, h, w, nh * hd, device=dev, generator=g).to(dt)
             grads, graphs = [], []
             for fn in (vit.flash_rel_pos_attention, vit.rel_pos_attention_plain):
@@ -338,53 +383,70 @@ def phase_backward_kernels():
                 rh, rw = rh0.to(dt).requires_grad_(), rw0.to(dt).requires_grad_()
                 q, k, v = qkv.unbind(2)
                 out = fn(q.reshape(Bw, h, w, nh, hd), k, v, rh, rw, hd ** -0.5)
+                before = {n: r.launches for n, r in routes.values()}
                 grads.append(torch.autograd.grad(out, (qkv, rh, rw), cot,
                                                  retain_graph=True))
+                moved = {n: r.launches - before[n] for n, r in routes.values()}
+                if fn is vit.flash_rel_pos_attention and moved != {
+                        n: int(n == name) for n in moved}:
+                    raise AssertionError(f"kernel A-bwd {label} {dt}: launches by route {moved}")
                 graphs.append((out, (qkv, rh, rw)))
             errs, rels = zip(*(
-                _check_rel(f"rel_pos_flash_attn_bwd {label} {dt} {n}", a, b, tol[dt])
+                _check_rel(f"{name} {label} {dt} {n}", a, b, tol[dt])
                 for n, a, b in zip(("dqkv", "dRh", "dRw"), *grads)))
-            # the kernel's function: the saved forward (out, lse) -> gradients
+            # the kernel's function: the saved forward (out, lse) -> gradients;
+            # the wrapper and the kernels alone over CUDA graph replays
             q, k, v = base.to(dt).unbind(2)
             q5 = q.reshape(Bw, h, w, nh, hd)
             fargs = (q5, k, v, rh0.to(dt), rw0.to(dt), hd ** -0.5)
             out, lse = vit.rel_pos_flash_attn_fwd(*fargs, with_lse=True)
-            ms = _timed(lambda: vit.rel_pos_flash_attn_bwd(*fargs, out, lse, cot), 3,
-                        warmup=1)
+            iters = 10 if bf16 else 2
+            ms = event_ms(lambda: vit.rel_pos_flash_attn_bwd(*fargs, out, lse, cot), iters,
+                          warmup=1)
+            kms = event_ms(_bwd_kernels_alone(*fargs, out, lse, cot), iters, warmup=1)
             pout, pin = graphs[1]
             pms = _timed(lambda: torch.autograd.grad(pout, pin, cot, retain_graph=True),
                          3, warmup=1)
             del graphs, grads, pout, pin
-            print(f"[kernel A-bwd] rel_pos_flash_attn_bwd {label} B={Bw} {h}x{w} "
-                  f"nh={nh} hd={hd} {str(dt)[6:]}: max_abs_err dqkv/dRh/dRw = "
+            # library: the backward of SDPA with the bias as a float mask
+            # (dq, dk, dv, dbias), the mask built outside the timing
+            sq, sk, sv, bias = _sdpa_args(q5, k, v, rh0.to(dt), rw0.to(dt))
+            leaves = [x.detach().requires_grad_() for x in (sq, sk, sv, bias)]
+            lout = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+            lcot = cot.reshape(Bw, S, nh, hd).transpose(1, 2)
+            lib = _timed(lambda: torch.autograd.grad(lout, leaves, lcot, retain_graph=True),
+                         10 if bf16 else 3)
+            del lout, leaves, bias, sq, sk, sv
+            e = 2 if bf16 else 4
+            b_ms, b_by = _bound(
+                e * 8 * Bw * S * nh * hd + 4 * Bw * nh * S
+                + 2 * e * (h * h * hd + w * w * hd),
+                Bw * nh * (10 * S * S * hd + 6 * S * (h + w) * hd),
+                "bf16" if bf16 else "fp32")
+            print(f"[kernel A-bwd] {name} {label} B={Bw} {h}x{w} nh={nh} hd={hd} "
+                  f"{str(dt)[6:]}: max_abs_err dqkv/dRh/dRw = "
                   + "/".join(f"{e:.3g}" for e in errs) + ", / max |grad| = "
                   + "/".join(f"{e:.3g}" for e in rels)
-                  + f" (tol {tol[dt]}) kernel {ms:.3f} ms, "
-                  f"plain backward {pms:.3f} ms")
-            if dt == torch.bfloat16:
-                r = rec.setdefault("rel_pos_flash_attn_bwd",
-                                   {"max_abs_err": 0.0, "max_rel_err": 0.0})
-                r["max_abs_err"] = max(r["max_abs_err"], *errs)
-                r["max_rel_err"] = max(r["max_rel_err"], *rels)
-                if label == "global":
-                    sq, sk, sv, bias = _sdpa_args(q5, k, v, rh0.to(dt), rw0.to(dt))
-                    leaves = [x.detach().requires_grad_() for x in (sq, sk, sv, bias)]
-                    lout = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
-                    lcot = cot.reshape(Bw, S, nh, hd).transpose(1, 2)
-                    lib = _timed(lambda: torch.autograd.grad(
-                        lout, leaves, lcot, retain_graph=True), 3)
-                    del lout, leaves, bias
-                    e = 2
-                    b_ms, b_by = _bound(
-                        e * 8 * Bw * S * nh * hd + 4 * Bw * nh * S
-                        + 2 * e * (h * h * hd + w * w * hd),
-                        Bw * nh * (10 * S * S * hd + 6 * S * (h + w) * hd), "bf16")
-                    r.update(ms=ms, plain_ms=pms, library_ms=lib, bound_ms=b_ms,
-                             bound_by=b_by, shape=f"global B={Bw} {h}x{w} bf16")
-                    print(f"[kernel A-bwd] bound {b_ms:.4f} ms ({b_by}); library: "
-                          f"backward of scaled_dot_product_attention with a float "
-                          f"bias mask (dq, dk, dv, dbias): {lib:.3f} ms")
+                  + f" (tol {tol[dt]}); CUDA graph replays: wrapper (bias products, Dq, "
+                  f"kernels, chain rule) {ms:.4f} ms, kernels alone {kms:.4f} ms "
+                  f"({100 * b_ms / kms:.1f}% of the bound {b_ms:.4f} ms, {b_by}); plain "
+                  f"backward {pms:.3f} ms; library: backward of scaled_dot_product_attention "
+                  f"with a float bias mask (dq, dk, dv, dbias) {lib:.4f} ms")
+            r = rec.setdefault(name, {"max_abs_err": 0.0, "max_rel_err": 0.0})
+            r["max_abs_err"] = max(r["max_abs_err"], *errs)
+            r["max_rel_err"] = max(r["max_rel_err"], *rels)
+            if label == "global":
+                r.update(ms=ms, kernel_ms=kms, plain_ms=pms, library_ms=lib, bound_ms=b_ms,
+                         bound_by=b_by, shape=f"global B={Bw} {h}x{w} {str(dt)[6:]}")
+            else:
+                r.update(window_ms=ms, window_kernel_ms=kms, window_plain_ms=pms,
+                         window_library_ms=lib, window_bound_ms=b_ms)
             torch.cuda.empty_cache()
+    a = rec["rel_pos_flash_attn_bwd"]
+    print(f"[kernel A-bwd] tensor-core route at bs={B}: global block wrapper {a['ms']:.4f} "
+          f"ms, kernels {a['kernel_ms']:.4f} ms against SDPA's backward "
+          f"{a['library_ms']:.4f} ms; window blocks wrapper {a['window_ms']:.4f} ms, kernels "
+          f"{a['window_kernel_ms']:.4f} ms against {a['window_library_ms']:.4f} ms, in this run")
 
     shapes = _msda_shapes()
     S = sum(a * b for a, b in shapes)
@@ -726,8 +788,11 @@ def phase_small_reference():
     torch.cuda.synchronize()
     launches = {k: c.launches for k, c in counters.items()}
     print(f"[reference] kernel launches on the small reference path: {launches}")
-    if launches["rel_pos_flash_attn"] or not launches["rel_pos_flash_attn_fp32"]:
-        raise AssertionError("the fp32 reference path must take kernel A's fp32 route only")
+    for fp32 in ("rel_pos_flash_attn_fp32", "rel_pos_flash_attn_bwd_fp32"):
+        bf16 = fp32.removesuffix("_fp32")
+        if launches[bf16] or not launches[fp32]:
+            raise AssertionError(f"the fp32 reference path must take {fp32} only, "
+                                 f"not {bf16}")
     return launches
 
 
@@ -736,7 +801,8 @@ def _counters():
     from uninext_tpu_torch.ops import dma_gather, gather_fold, msda, nms
     return {"rel_pos_flash_attn": vit.rel_pos_flash_attn_mma,
             "rel_pos_flash_attn_fp32": vit.rel_pos_flash_attn_fp32,
-            "rel_pos_flash_attn_bwd": vit.rel_pos_flash_attn_bwd,
+            "rel_pos_flash_attn_bwd": vit.rel_pos_flash_attn_bwd_mma,
+            "rel_pos_flash_attn_bwd_fp32": vit.rel_pos_flash_attn_bwd_fp32,
             "ms_deform_attn_fwd": msda.ms_deform_attn,
             "ms_deform_attn_bwd": msda.ms_deform_attn_bwd,
             "nms": nms.batched_nms,
@@ -914,6 +980,9 @@ def phase_training(profile: bool):
     t = cfg.transformer
     n_remat_msda = t.enc_layers if cfg.remat_encoder else 0
     n_remat_vit = cfg.backbone.vit_depth if cfg.backbone.vit_use_checkpoint else 0
+    # every block (24 global, 8 windowed in ViT-H) launches A once, again
+    # in its recompute, and A-bwd once: all on the tensor-core routes, none
+    # on the fp32 routes
     expect = {**dict.fromkeys(counters, 0),
               "rel_pos_flash_attn": cfg.backbone.vit_depth + n_remat_vit,
               "rel_pos_flash_attn_bwd": cfg.backbone.vit_depth,
@@ -1014,10 +1083,14 @@ SOURCES = {
     "rel_pos_flash_attn_fp32": ("uninext_tpu_torch/csrc/rel_pos_flash_attn.cu",
                                 "uninext_tpu/models/vit.py:131 (fp32 inputs)"),
     "rel_pos_flash_attn_bwd": (
-        "uninext_tpu_torch/csrc/rel_pos_flash_attn_bwd.cu",
+        "uninext_tpu_torch/csrc/rel_pos_flash_attn_bwd_mma.cu",
         "uninext_tpu/models/vit.py:131 under jax.grad: jax/experimental/pallas/ops/"
         "tpu/flash_attention.py:941 _flash_attention_bwd_dkv, :1287 "
         "_flash_attention_bwd_dq"),
+    "rel_pos_flash_attn_bwd_fp32": (
+        "uninext_tpu_torch/csrc/rel_pos_flash_attn_bwd.cu",
+        "uninext_tpu/models/vit.py:131 under jax.grad (fp32 inputs): flash_attention.py"
+        ":941, :1287"),
     "ms_deform_attn_fwd": ("uninext_tpu_torch/csrc/ms_deform_attn.cu",
                            "uninext_tpu/ops/msda.py:136"),
     "ms_deform_attn_bwd": ("uninext_tpu_torch/csrc/ms_deform_attn.cu",
@@ -1067,8 +1140,15 @@ def main():
                         **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms", "shape")},
                         "bound_share": r["bound_ms"] / r["ms"],
-                        **{k: r[k] for k in ("max_rel_err", "window_ms", "window_library_ms",
-                                             "window_bound_ms") if k in r}})
+                        **{k: r[k] for k in ("max_rel_err", "kernel_ms", "window_ms",
+                                             "window_kernel_ms", "window_plain_ms",
+                                             "window_library_ms", "window_bound_ms")
+                           if k in r}})
+        k = kernels[-1]
+        if "kernel_ms" in k:
+            k["kernel_bound_share"] = k["bound_ms"] / k["kernel_ms"]
+        if "window_bound_ms" in k:
+            k["window_bound_share"] = k["window_bound_ms"] / k["window_ms"]
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -196,27 +196,51 @@ def _close_rel(name, got, want, dtype, floor=1e-6):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,H,W,nh,hd", [(2, 9, 11, 4, 8), (3, 14, 14, 4, 80),
-                                         (1, 50, 76, 2, 80)])
+                                         (1, 50, 76, 2, 80), (24, 14, 14, 16, 80),
+                                         (1, 7, 13, 2, 64), (1, 7, 13, 2, 128)])
 def test_rel_pos_flash_attn_bwd_matches_plain(dev, dtype, B, H, W, nh, hd):
+    """Each dtype takes its own route of A-bwd and moves only its own
+    counter: bf16 the tensor-core kernels, fp32 the CUDA-core kernels."""
     g = torch.Generator(device=dev).manual_seed(B * W + hd)
     S = H * W
     base = torch.randn(B, S, 3, nh, hd, device=dev, generator=g)
     rh0 = 0.1 * torch.randn(H, H, hd, device=dev, generator=g)
     rw0 = 0.1 * torch.randn(W, W, hd, device=dev, generator=g)
     cot = torch.randn(B, H, W, nh * hd, device=dev, generator=g).to(dtype)
+    routes = (vit.rel_pos_flash_attn_bwd, vit.rel_pos_flash_attn_bwd_mma,
+              vit.rel_pos_flash_attn_bwd_fp32)
     grads = []
     for fn in (vit.flash_rel_pos_attention, vit.rel_pos_attention_plain):
         qkv = base.to(dtype).requires_grad_()
         rh, rw = rh0.to(dtype).requires_grad_(), rw0.to(dtype).requires_grad_()
         q, k, v = qkv.unbind(2)
         out = fn(q.reshape(B, H, W, nh, hd), k, v, rh, rw, hd ** -0.5)
+        before = [r.launches for r in routes]
         grads.append(torch.autograd.grad(out, (qkv, rh, rw), cot))
         if fn is vit.flash_rel_pos_attention:
             assert type(out.grad_fn).__name__ == "_RelPosFlashAttnBackward"
+            bf16 = dtype == torch.bfloat16
+            assert ([r.launches - n for r, n in zip(routes, before)]
+                    == [1, int(bf16), int(not bf16)])
     torch.cuda.synchronize()
     for name, got, want in zip(("dqkv", "dRh", "dRw"), *grads):
         assert got.dtype == dtype
         _close_rel(name, got, want, dtype)
+
+
+@pytest.mark.parametrize("hd", [12, 136])
+def test_rel_pos_flash_attn_bwd_mma_refuses_other_head_dims(dev, hd):
+    """bf16 with hd not a multiple of 8, or above 128, raises in A-bwd too:
+    it is launched on no kernel (no route counts it)."""
+    q5, k, v, Rh, Rw = _attention_case(dev, torch.bfloat16, 1, 5, 6, 2, hd)
+    out = torch.zeros(1, 5, 6, 2 * hd, dtype=torch.bfloat16, device=dev)
+    lse = torch.zeros(1, 2, 30, device=dev)
+    routes = (vit.rel_pos_flash_attn_bwd, vit.rel_pos_flash_attn_bwd_mma,
+              vit.rel_pos_flash_attn_bwd_fp32)
+    before = [r.launches for r in routes]
+    with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+        vit.rel_pos_flash_attn_bwd(q5, k, v, Rh, Rw, hd ** -0.5, out, lse, out)
+    assert [r.launches for r in routes] == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,8 @@
 // Warp-level bf16 tensor-core helpers for sm_80+ (used on sm_90a): the
 // m16n8k16 product, ldmatrix loads of its operands from shared memory, and
-// 16-byte cp.async copies. Shared by kernel A (rel_pos_flash_attn_mma.cu)
-// and meant for its backward.
+// 16-byte cp.async copies; and the padded key space of the rel-pos bias.
+// Shared by kernel A (rel_pos_flash_attn_mma.cu) and its backward
+// (rel_pos_flash_attn_bwd_mma.cu).
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32,
 // with g = lane / 4 and t = lane % 4 (each .b32 register holds two bf16, the
@@ -88,6 +89,35 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float FAR = -1e30f;   // bias of a padding key: exp2 of it is 0
+
+// Keys are walked in a padded space: grid row y' holds padded keys
+// y' Wp .. y' Wp + Wp - 1, of which the first W are keys. An 8-key n-tile
+// then lies in one grid row. Tiles of `bk` padded keys; HS is the row
+// stride of a block's bh table in shared memory.
+struct Layout {
+  int Wp, ntiles, HS;
+};
+
+inline Layout layout(int H, int W, int bk) {
+  Layout L;
+  L.Wp = (W + 7) / 8 * 8;
+  L.ntiles = (H * L.Wp + bk - 1) / bk;
+  const int hp = (L.ntiles * bk + L.Wp - 1) / L.Wp;   // grid rows the tiles touch
+  L.HS = hp | 1;     // odd: 8 rows at one column hit 8 banks
+  return L;
+}
+
+// Row r of a block's bw table starts at r Wp + 8 floor(r q / 4) floats,
+// with q = 4, 2 or 0 as Wp = 0, 16 or 8 (mod 32): then any 4 rows 4k..4k+3
+// start 8 banks apart, and a half-warp's 8-byte accesses (4 rows x 4 lanes
+// at even columns) are conflict-free. bw_row(rows, Wp) is the table's size.
+__host__ __device__ inline int bw_row(int r, int Wp) {
+  const int q = Wp % 32 == 0 ? 4 : Wp % 32 == 16 ? 2 : 0;
+  return r * Wp + 8 * ((r * q) >> 2);
 }
 
 }  // namespace mma_bf16

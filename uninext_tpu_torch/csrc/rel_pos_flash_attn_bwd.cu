@@ -1,5 +1,7 @@
-// Kernel A-bwd: the backward of kernel A (rel_pos_flash_attn.cu), flash
-// style, from the logsumexp the forward saved.
+// Kernel A-bwd's fp32 route: the backward of kernel A's fp32 route
+// (rel_pos_flash_attn.cu), flash style, from the logsumexp the forward
+// saved. bf16 inputs take the tensor-core kernel in
+// rel_pos_flash_attn_bwd_mma.cu.
 //
 // Replaces: the two Pallas kernels the stock TPU flash attention runs under
 // jax.grad of uninext_tpu/models/vit.py:131 flash_rel_pos_attention
@@ -15,8 +17,9 @@
 // The chain rule through bh = q.Rh and bw = q.Rw (dq += dbh.Rh + dbw.Rw,
 // dRh, dRw) stays in torch einsums outside (models/vit.py), as the JAX
 // package forms bh and bw with XLA einsums outside its Pallas call. The
-// caller also passes Dq and the bias rows bh (B, nh, S, H) and bw
-// (B, nh, S, W) in fp32, so neither kernel recomputes them per tile.
+// caller also passes Dq and the bias tables bh (B, nh, H, W, H) and bw
+// (B, nh, H, W, W) in fp32, read through their strides, so neither kernel
+// recomputes them per tile; dbh and dbw are written with the same strides.
 //
 // Design: two kernels, as the stock Pallas version has, so that no sum
 // crosses blocks and the result does not depend on scheduling:
@@ -29,10 +32,10 @@
 // fp32 atomics into device memory for dk/dv would need (S/64) adds per
 // element from every query tile; the split avoids them.
 //
-// What bounds it on the H100: like the forward, it multiplies on the fp32
-// CUDA cores from shared memory (4 products of 64 x 64 x hd per tile pair
-// in dkv, 3 in dq: about 3.5x the forward's work), far below the bf16
-// tensor-core roofline. Tensor cores are later work.
+// What bounds it on the H100: like the fp32 forward, it multiplies on the
+// fp32 CUDA cores from shared memory (4 products of 64 x 64 x hd per tile
+// pair in dkv, 3 in dq: about 3.5x the forward's work), at 67 TFLOP/s
+// peak. Only the small fp32 reference path runs it.
 #include "common.cuh"
 
 namespace {
@@ -44,35 +47,38 @@ constexpr int MAX_HD = 128;
 constexpr int CPT = MAX_HD / 16;
 
 struct Args {
-  const void* q; const void* k; const void* v; const void* dout;
+  const float* q; const float* k; const float* v; const float* dout;
   const float* lse; const float* dsum; const float* bh; const float* bw;
   float* dq; float* dk; float* dv; float* dbh; float* dbw;
   int H, W, nh, hd;
   long long sb, ss, sh;
+  long long hs[4], ws[4];   // bh, dbh: (b, h, y, x, i) at b hs[0] + h hs[1] + y hs[2] + x hs[3] + i
   float scale;
 };
 
 // Rows [r0, r0 + n) of a (.., S, nh, hd) tensor with strides (sb, ss, sh, 1)
 // into shared memory with row stride ld; rows past S read as zeros.
-template <typename T>
-__device__ void load_rows(float* dst, const T* src, int r0, int S, int hd, int ld,
+__device__ void load_rows(float* dst, const float* src, int r0, int S, int hd, int ld,
                           long long ss) {
   for (int e = threadIdx.x; e < BQ * hd; e += NT) {
     const int r = e / hd, d = e - r * hd;
     const int s = r0 + r;
-    dst[r * ld + d] = s < S ? to_f32(src[s * ss + d]) : 0.f;
+    dst[r * ld + d] = s < S ? src[s * ss + d] : 0.f;
   }
 }
 
 // Per-row tables of rows [r0, r0 + BQ): bias rows (BQ x (H + W)), lse, Dq.
+// bh, bw point at the (batch, head) of the tables; lse, dsum at its row 0.
 __device__ void load_row_tables(float* bhs, float* bws, float* lses, float* dsums,
                                 const float* bh, const float* bw, const float* lse,
-                                const float* dsum, int r0, int S, int H, int W) {
+                                const float* dsum, int r0, int S, int H, int W,
+                                const Args& a) {
   for (int e = threadIdx.x; e < BQ * (H + W); e += NT) {
     const int r = e / (H + W), c = e - r * (H + W);
     const int s = r0 + r;
-    if (c < H) bhs[r * H + c] = s < S ? bh[(long long)s * H + c] : 0.f;
-    else bws[r * W + (c - H)] = s < S ? bw[(long long)s * W + (c - H)] : 0.f;
+    const int y = s / W, x = s - (s / W) * W;
+    if (c < H) bhs[r * H + c] = s < S ? bh[y * a.hs[2] + x * a.hs[3] + c] : 0.f;
+    else bws[r * W + (c - H)] = s < S ? bw[y * a.ws[2] + x * a.ws[3] + (c - H)] : 0.f;
   }
   for (int r = threadIdx.x; r < BQ; r += NT) {
     const int s = r0 + r;
@@ -81,7 +87,6 @@ __device__ void load_row_tables(float* bhs, float* bws, float* lses, float* dsum
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
   extern __shared__ float smem[];
   const int H = a.H, W = a.W, hd = a.hd, S = H * W;
@@ -104,11 +109,13 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
   float* dsums = lses + BQ;           // BQ
 
   const long long off = b * a.sb + h * a.sh;
-  const long long bh_row = (b * a.nh + h) * S;    // row index into (B, nh, S, .)
-  const T* qb = (const T*)a.q + off;
-  const T* dob = (const T*)a.dout + (b * S * a.nh + h) * hd;
-  load_rows(ks, (const T*)a.k + off, k0, S, hd, ld, a.ss);
-  load_rows(vs, (const T*)a.v + off, k0, S, hd, ld, a.ss);
+  const long long row0 = (b * a.nh + h) * S;      // row index into (B, nh, S)
+  const float* bhb = a.bh + b * a.hs[0] + h * a.hs[1];
+  const float* bwb = a.bw + b * a.ws[0] + h * a.ws[1];
+  const float* qb = a.q + off;
+  const float* dob = a.dout + (b * S * a.nh + h) * hd;
+  load_rows(ks, a.k + off, k0, S, hd, ld, a.ss);
+  load_rows(vs, a.v + off, k0, S, hd, ld, a.ss);
 
   int ki[4], kj[4];
   bool kvalid[4];
@@ -129,8 +136,8 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
     __syncthreads();   // previous query tile consumed
     load_rows(qs, qb, q0, S, hd, ld, a.ss);
     load_rows(dos, dob, q0, S, hd, ld, (long long)a.nh * hd);
-    load_row_tables(bhs, bws, lses, dsums, a.bh + bh_row * H, a.bw + bh_row * W,
-                    a.lse + bh_row, a.dsum + bh_row, q0, S, H, W);
+    load_row_tables(bhs, bws, lses, dsums, bhb, bwb, a.lse + row0, a.dsum + row0, q0, S,
+                    H, W, a);
     __syncthreads();
 
     float st[4][4], dpt[4][4];
@@ -213,7 +220,6 @@ __global__ void __launch_bounds__(NT) bwd_dkv_kernel(Args a) {
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
   extern __shared__ float smem[];
   const int H = a.H, W = a.W, hd = a.hd, S = H * W;
@@ -237,14 +243,14 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
   float* dsums = lses + BQ;           // BQ
 
   const long long off = b * a.sb + h * a.sh;
-  const long long bh_row = (b * a.nh + h) * S;
-  const T* kb = (const T*)a.k + off;
-  const T* vb = (const T*)a.v + off;
-  load_rows(qs, (const T*)a.q + off, q0, S, hd, ld, a.ss);
-  load_rows(dos, (const T*)a.dout + (b * S * a.nh + h) * hd, q0, S, hd, ld,
-            (long long)a.nh * hd);
-  load_row_tables(bhs, bws, lses, dsums, a.bh + bh_row * H, a.bw + bh_row * W,
-                  a.lse + bh_row, a.dsum + bh_row, q0, S, H, W);
+  const long long row0 = (b * a.nh + h) * S;
+  const float* kb = a.k + off;
+  const float* vb = a.v + off;
+  load_rows(qs, a.q + off, q0, S, hd, ld, a.ss);
+  load_rows(dos, a.dout + (b * S * a.nh + h) * hd, q0, S, hd, ld, (long long)a.nh * hd);
+  load_row_tables(bhs, bws, lses, dsums, a.bh + b * a.hs[0] + h * a.hs[1],
+                  a.bw + b * a.ws[0] + h * a.ws[1], a.lse + row0, a.dsum + row0, q0, S, H, W,
+                  a);
   for (int e = threadIdx.x; e < BQ * (H + W); e += NT) gbh[e] = 0.f;   // gbh, gbw adjacent
 
   float acc[4][CPT];
@@ -338,8 +344,12 @@ __global__ void __launch_bounds__(NT) bwd_dq_kernel(Args a) {
     const int r = e / (H + W), c = e - r * (H + W);
     const int s = q0 + r;
     if (s >= S) continue;
-    if (c < H) a.dbh[(bh_row + s) * H + c] = gbh[r * H + c];
-    else a.dbw[(bh_row + s) * W + (c - H)] = gbw[r * W + (c - H)];
+    const int y = s / W, x = s - (s / W) * W;
+    if (c < H)
+      a.dbh[b * a.hs[0] + h * a.hs[1] + y * a.hs[2] + x * a.hs[3] + c] = gbh[r * H + c];
+    else
+      a.dbw[b * a.ws[0] + h * a.ws[1] + y * a.ws[2] + x * a.ws[3] + (c - H)] =
+          gbw[r * W + (c - H)];
   }
 }
 
@@ -351,44 +361,41 @@ size_t dq_smem(int H, int W, int hd) {
   return sizeof(float) * (size_t)(4 * 64 * (hd + 1) + BQ * (BK + 1) + 2 * BQ * (H + W) + 2 * BQ);
 }
 
-template <typename T>
 int launch(const Args& a, int B, cudaStream_t stream) {
   const int S = a.H * a.W;
   const size_t s1 = dkv_smem(a.H, a.W, a.hd), s2 = dq_smem(a.H, a.W, a.hd);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+      bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
   if (err != cudaSuccess) return (int)err;
   err = cudaFuncSetAttribute(
-      bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
+      bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + 63) / 64, a.nh, B);
-  bwd_dkv_kernel<T><<<grid, NT, s1, stream>>>(a);
+  bwd_dkv_kernel<<<grid, NT, s1, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  bwd_dq_kernel<T><<<grid, NT, s2, stream>>>(a);
+  bwd_dq_kernel<<<grid, NT, s2, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: (B, H*W, nh, hd) with element strides (sb, ss, sh, 1), shared by
-// the three; dout: (B, H*W, nh, hd) contiguous; all of dtype `dtype`.
-// fp32: lse, dsum (B, nh, S); bh (B, nh, S, H); bw (B, nh, S, W).
-// Outputs, fp32, contiguous: dq, dk, dv (B, S, nh, hd) (dq without the
-// bias terms), dbh (B, nh, S, H), dbw (B, nh, S, W).
+// q, k, v: fp32 (B, H*W, nh, hd) with element strides (sb, ss, sh, 1),
+// shared by the three; dout: fp32 (B, H*W, nh, hd) contiguous; lse, dsum
+// (B, nh, S); bh (B, nh, H, W, H) and bw (B, nh, H, W, W) with element
+// strides (hs[0..3], 1) and (ws[0..3], 1). Outputs, fp32: dq, dk, dv
+// (B, S, nh, hd) contiguous (dq without the bias terms); dbh and dbw with
+// bh's and bw's strides.
 extern "C" int rel_pos_flash_attn_bwd(
-    const void* q, const void* k, const void* v, const void* dout,
+    const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* dsum, const float* bh, const float* bw,
     float* dq, float* dk, float* dv, float* dbh, float* dbw,
     int B, int H, int W, int nh, int hd, long long sb, long long ss,
-    long long sh, float scale, int dtype, void* stream) {
+    long long sh, const long long* hs, const long long* ws, float scale, void* stream) {
   if (hd > MAX_HD || hd < 1) return (int)cudaErrorInvalidValue;
-  Args a{q, k, v, dout, lse, dsum, bh, bw, dq, dk, dv, dbh, dbw,
-         H, W, nh, hd, sb, ss, sh, scale};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == UNINEXT_F32) return launch<float>(a, B, st);
-  if (dtype == UNINEXT_BF16) return launch<__nv_bfloat16>(a, B, st);
-  return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, dout, lse, dsum, bh, bw, dq, dk, dv, dbh, dbw, H, W, nh, hd, sb, ss, sh,
+         {hs[0], hs[1], hs[2], hs[3]}, {ws[0], ws[1], ws[2], ws[3]}, scale};
+  return launch(a, B, (cudaStream_t)stream);
 }
 
 // the larger of the two kernels' shared memory at these sizes

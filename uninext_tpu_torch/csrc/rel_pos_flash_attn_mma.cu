@@ -73,9 +73,7 @@ using namespace mma_bf16;
 constexpr int BQ = 128;   // query rows per block
 constexpr int BK = 64;        // padded keys per tile
 constexpr int NJ = BK / 8;    // n-tiles of 8 keys per tile
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr float FAR = -1e30f;   // bias of a padding key: exp2 of it is 0
 
 // m-tiles of 16 rows per warp: two share every K and V fragment (half the
 // shared-memory reads per product) up to hd 80; one above, for registers
@@ -99,31 +97,6 @@ struct Args {
   long long hs[4], ws[4];
   float scale;
 };
-
-// Keys are walked in a padded space: grid row y' holds padded keys
-// y' Wp .. y' Wp + Wp - 1, of which the first W are keys. An 8-key n-tile
-// then lies in one grid row.
-struct Layout {
-  int Wp, ntiles, HS;
-};
-
-Layout layout(int H, int W) {
-  Layout L;
-  L.Wp = (W + 7) / 8 * 8;
-  L.ntiles = (H * L.Wp + BK - 1) / BK;
-  const int hp = (L.ntiles * BK + L.Wp - 1) / L.Wp;   // grid rows the tiles touch
-  L.HS = hp | 1;     // odd: 8 rows at one column hit 8 banks
-  return L;
-}
-
-// Row r of the bw table starts at r Wp + 8 floor(r q / 4) floats, with
-// q = 4, 2 or 0 as Wp = 0, 16 or 8 (mod 32): then any 4 rows 4k..4k+3 start
-// 8 banks apart, and a half-warp's 8-byte loads (4 rows x 4 lanes at even
-// columns) are conflict-free. bw_row(BQ, Wp) is the table's size.
-__host__ __device__ inline int bw_row(int r, int Wp) {
-  const int q = Wp % 32 == 0 ? 4 : Wp % 32 == 16 ? 2 : 0;
-  return r * Wp + 8 * ((r * q) >> 2);
-}
 
 size_t smem_bytes(int ks_steps, const Layout& L) {
   return 4 * (size_t)BK * (16 * ks_steps + 8) * sizeof(__nv_bfloat16) +
@@ -420,7 +393,7 @@ extern "C" int rel_pos_flash_attn_mma(const void* q, const void* k, const void* 
                                       int B, int H, int W, int nh, int hd, long long sb,
                                       long long ss, long long sh, const long long* hs,
                                       const long long* ws, float scale, void* stream) {
-  const Layout L = layout(H, W);
+  const Layout L = layout(H, W, BK);
   if (hd < 8 || hd > 128 || hd % 8 != 0 || (long long)L.ntiles * BK >= (1LL << 22))
     return (int)cudaErrorInvalidValue;
   const Args a{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
@@ -442,5 +415,5 @@ extern "C" int rel_pos_flash_attn_mma(const void* q, const void* k, const void* 
 // shared memory bytes the kernel asks for at these sizes (the wrapper checks
 // it against the card's limit before launching)
 extern "C" long long rel_pos_flash_attn_mma_smem_bytes(int H, int W, int hd) {
-  return (long long)smem_bytes((hd + 15) / 16, layout(H, W));
+  return (long long)smem_bytes((hd + 15) / 16, layout(H, W, BK));
 }

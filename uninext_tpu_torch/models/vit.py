@@ -8,7 +8,9 @@ tensor cores (`csrc/rel_pos_flash_attn_mma.cu`), in fp32 on the CUDA cores
 (`csrc/rel_pos_flash_attn.cu`); each route counts its own launches. The JAX package's `H*W >= 2048` flash gate and its q-row
 chunking were decisions for the TPU and are not carried over. Under
 autograd the wrapper is a `torch.autograd.Function` whose backward is
-kernel A-bwd (`csrc/rel_pos_flash_attn_bwd.cu`).
+kernel A-bwd, again with two routes: bf16 on the tensor cores
+(`csrc/rel_pos_flash_attn_bwd_mma.cu`), fp32 on the CUDA cores
+(`csrc/rel_pos_flash_attn_bwd.cu`).
 
 Training adds stochastic depth (masks drawn before each block from an
 explicit generator) and per-block activation checkpointing
@@ -144,7 +146,8 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "rel_pos_flash_attn_mma": [_P] * 7 + [_I] * 5 + [_LL] * 3 + [_LLP] * 2 + [_F, _P],
     "rel_pos_flash_attn": [_P] * 7 + [_I] * 5 + [_LL] * 3 + [_F, _P],
-    "rel_pos_flash_attn_bwd": [_P] * 13 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P],
+    "rel_pos_flash_attn_bwd_mma": [_P] * 13 + [_I] * 5 + [_LL] * 6 + [_LLP] * 2 + [_F, _P],
+    "rel_pos_flash_attn_bwd": [_P] * 13 + [_I] * 5 + [_LL] * 3 + [_LLP] * 2 + [_F, _P],
 }
 
 
@@ -192,6 +195,24 @@ def _count_forward(route) -> None:
         flash_rel_pos_attention.recompute_launches += 1
 
 
+def _check_mma_inputs(name, q, k, v, Rh, Rw):
+    """What the tensor-core kernels take: bf16 with hd a multiple of 8 up
+    to 128 and 16-byte aligned q, k, v rows; ValueError for anything else.
+    Returns q as (B, S, nh, hd)."""
+    B, H, W, nh, hd = q.shape
+    if q.dtype != torch.bfloat16:
+        raise ValueError(f"{name}: takes bfloat16, got {q.dtype}")
+    if hd % 8 or not 8 <= hd <= 128:
+        raise ValueError(f"{name}: hd={hd}; the tensor-core kernel "
+                         "takes a multiple of 8 up to 128")
+    if H * (W + 7) // 8 * 8 + 64 > 1 << 22:
+        raise ValueError(f"{name}: grid {H}x{W} is too large")
+    q3 = _check_attention_inputs(q, k, v, Rh, Rw)
+    if any(t.data_ptr() % 16 for t in (q3, k, v)) or any(st % 8 for st in q3.stride()[:3]):
+        raise ValueError(f"{name}: q, k, v rows must be 16-byte aligned")
+    return q3
+
+
 def rel_pos_flash_attn_mma(q, k, v, Rh, Rw, scale: float, with_lse: bool = False):
     """Kernel A's bf16 route (`csrc/rel_pos_flash_attn_mma.cu`, tensor
     cores) on CUDA tensors, no autograd; the bias tables from
@@ -200,16 +221,7 @@ def rel_pos_flash_attn_mma(q, k, v, Rh, Rw, scale: float, with_lse: bool = False
     input (no other kernel takes it). Returns as `rel_pos_flash_attn_fwd`."""
     B, H, W, nh, hd = q.shape
     S = H * W
-    if q.dtype != torch.bfloat16:
-        raise ValueError(f"rel_pos_flash_attn_mma: takes bfloat16, got {q.dtype}")
-    if hd % 8 or not 8 <= hd <= 128:
-        raise ValueError(f"rel_pos_flash_attn_mma: hd={hd}; the tensor-core kernel "
-                         "takes a multiple of 8 up to 128")
-    if H * (W + 7) // 8 * 8 + 64 > 1 << 22:
-        raise ValueError(f"rel_pos_flash_attn_mma: grid {H}x{W} is too large")
-    q3 = _check_attention_inputs(q, k, v, Rh, Rw)
-    if any(t.data_ptr() % 16 for t in (q3, k, v)) or any(st % 8 for st in q3.stride()[:3]):
-        raise ValueError("rel_pos_flash_attn_mma: q, k, v rows must be 16-byte aligned")
+    q3 = _check_mma_inputs("rel_pos_flash_attn_mma", q, k, v, Rh, Rw)
     dev = q.device
     _smem_check("rel_pos_flash_attn_mma", H, W, hd, _dev_index(dev))
     bh, bw = rel_pos_bias(q, Rh, Rw)
@@ -261,50 +273,123 @@ def rel_pos_flash_attn_fwd(q, k, v, Rh, Rw, scale: float, with_lse: bool = False
                     f"got {q.dtype}")
 
 
-def rel_pos_flash_attn_bwd(q, k, v, Rh, Rw, scale: float, out, lse, dout):
-    """Launch kernel A-bwd on CUDA tensors: the gradients of
-    `rel_pos_flash_attn_fwd` for the output cotangent `dout`, from the
-    forward's logsumexp `lse`. The kernels read the bias tables of
-    `rel_pos_bias`, and the chain rule through bh = q.Rh and bw = q.Rw is
-    taken here from their dbh and dbw. Returns (dq, dk, dv, dRh, dRw) in the
-    input dtype."""
+def _bwd_inputs(q, out, dout):
+    """dO as (B, S, nh, hd) rows in q's dtype, and Dq = rowsum(dO * O)
+    (B, nh, S) in fp32, which both backward routes read."""
     B, H, W, nh, hd = q.shape
     S = H * W
+    dout4 = dout.reshape(B, S, nh, hd).to(q.dtype).contiguous()
+    dsum = (dout4.float() * out.reshape(B, S, nh, hd).float()).sum(-1)
+    return dout4, dsum.transpose(1, 2).contiguous()
+
+
+def _bias_grad_buffers(bh, bw):
+    """dbh and dbw, fp32, laid out as `rel_pos_bias`'s bh and bw: the
+    kernels write them through the same strides they read the tables."""
+    return (torch.empty_strided(bh.shape, bh.stride(), dtype=torch.float32, device=bh.device),
+            torch.empty_strided(bw.shape, bw.stride(), dtype=torch.float32, device=bw.device))
+
+
+def _bias_chain(q, Rh, Rw, dq, dbh, dbw):
+    """The chain rule through bh = q.Rh and bw = q.Rw from the kernels' dbh
+    and dbw (laid out by `_bias_grad_buffers`): dq (B, S, nh, hd) with its
+    bias terms added, as (B, H, W, nh, hd), and dRh, dRw, all fp32. Batched
+    products over grid rows (bh) and grid columns (bw), as `rel_pos_bias`
+    forms the tables; dRh and dRw batch over the images too and sum those
+    after, so that their long sums (B W nh, B H nh terms) are split."""
+    B, H, W, nh, hd = q.shape
+    gh = dbh.permute(2, 0, 3, 1, 4).reshape(H, B * W * nh, H)
+    gw = dbw.permute(3, 0, 2, 1, 4).reshape(W, B * H * nh, W)
+    qy = q.permute(1, 0, 2, 3, 4).reshape(H * B, W * nh, hd)
+    qx = q.permute(2, 0, 1, 3, 4).reshape(W * B, H * nh, hd)
+    dq = (dq.reshape(B, H, W, nh, hd)
+          + _bmm_f32(gh, Rh).view(H, B, W, nh, hd).permute(1, 0, 2, 3, 4)
+          + _bmm_f32(gw, Rw).view(W, B, H, nh, hd).permute(1, 2, 0, 3, 4))
+    dRh = _bmm_f32(gh.view(H * B, W * nh, H).transpose(1, 2), qy).view(H, B, H, hd).sum(1)
+    dRw = _bmm_f32(gw.view(W * B, H * nh, W).transpose(1, 2), qx).view(W, B, W, hd).sum(1)
+    return dq, dRh, dRw
+
+
+def rel_pos_flash_attn_bwd_mma(q, k, v, Rh, Rw, scale: float, out, lse, dout):
+    """Kernel A-bwd's bf16 route (`csrc/rel_pos_flash_attn_bwd_mma.cu`,
+    tensor cores) on CUDA tensors. Takes what kernel A's bf16 route takes
+    and raises ValueError for any other bf16 input. Returns as
+    `rel_pos_flash_attn_bwd`."""
+    B, H, W, nh, hd = q.shape
+    S = H * W
+    name = "rel_pos_flash_attn_bwd_mma"
+    q3 = _check_mma_inputs(name, q, k, v, Rh, Rw)
     dev = q.device
-    dtype = _build.dtype_code(q)
+    _smem_check(name, H, W, hd, _dev_index(dev))
+    bh, bw = rel_pos_bias(q, Rh, Rw)
+    dout4, dsum = _bwd_inputs(q, out, dout)
+    if dout4.data_ptr() % 16:
+        raise ValueError(f"{name}: dout rows must be 16-byte aligned")
+    dq = torch.empty((B, S, nh, hd), dtype=torch.float32, device=dev)
+    dk = torch.empty((B, S, nh, hd), dtype=q.dtype, device=dev)
+    dv = torch.empty((B, S, nh, hd), dtype=q.dtype, device=dev)
+    dbh, dbw = _bias_grad_buffers(bh, bw)
+    sb, ss, sh, _ = q3.stride()
+    dsb, dss, dsh, _ = dout4.stride()
+    rc = _entry(name)(
+        q3.data_ptr(), k.data_ptr(), v.data_ptr(), dout4.data_ptr(), lse.data_ptr(),
+        dsum.data_ptr(), bh.data_ptr(), bw.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), dbh.data_ptr(), dbw.data_ptr(), B, H, W, nh, hd, sb, ss, sh,
+        dsb, dss, dsh, _strides(bh), _strides(bw), float(scale), _build.stream_of(q))
+    _build.check(_build.library(name), rc, name)
+    rel_pos_flash_attn_bwd_mma.launches += 1
+    dq, dRh, dRw = _bias_chain(q, Rh, Rw, dq, dbh, dbw)
+    dt = q.dtype
+    return dq.to(dt), dk, dv, dRh.to(dt), dRw.to(dt)
+
+
+def rel_pos_flash_attn_bwd_fp32(q, k, v, Rh, Rw, scale: float, out, lse, dout):
+    """Kernel A-bwd's fp32 route (`csrc/rel_pos_flash_attn_bwd.cu`, CUDA
+    cores) on CUDA tensors. Returns as `rel_pos_flash_attn_bwd`."""
+    B, H, W, nh, hd = q.shape
+    S = H * W
+    if q.dtype != torch.float32:
+        raise ValueError(f"rel_pos_flash_attn_bwd_fp32: takes float32, got {q.dtype}")
+    dev = q.device
     q3 = _check_attention_inputs(q, k, v, Rh, Rw)
     _smem_check("rel_pos_flash_attn_bwd", H, W, hd, _dev_index(dev))
     bh, bw = rel_pos_bias(q, Rh, Rw)
-    bh = bh.reshape(B, nh, S, H).contiguous()
-    bw = bw.reshape(B, nh, S, W).contiguous()
-    dout4 = dout.reshape(B, S, nh, hd).to(q.dtype).contiguous()
-    dsum = (dout4.float() * out.reshape(B, S, nh, hd).float()).sum(-1)
-    dsum = dsum.transpose(1, 2).contiguous()                # (B, nh, S)
+    dout4, dsum = _bwd_inputs(q, out, dout)
     f32 = dict(dtype=torch.float32, device=dev)
     dq = torch.empty((B, S, nh, hd), **f32)
     dk = torch.empty((B, S, nh, hd), **f32)
     dv = torch.empty((B, S, nh, hd), **f32)
-    dbh = torch.empty((B, nh, S, H), **f32)
-    dbw = torch.empty((B, nh, S, W), **f32)
+    dbh, dbw = _bias_grad_buffers(bh, bw)
     sb, ss, sh, _ = q3.stride()
     rc = _entry("rel_pos_flash_attn_bwd")(
         q3.data_ptr(), k.data_ptr(), v.data_ptr(), dout4.data_ptr(),
         lse.data_ptr(), dsum.data_ptr(), bh.data_ptr(), bw.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbh.data_ptr(),
-        dbw.data_ptr(), B, H, W, nh, hd, sb, ss, sh, float(scale), dtype,
-        _build.stream_of(q))
+        dbw.data_ptr(), B, H, W, nh, hd, sb, ss, sh, _strides(bh), _strides(bw),
+        float(scale), _build.stream_of(q))
     _build.check(_build.library("rel_pos_flash_attn_bwd"), rc, "rel_pos_flash_attn_bwd")
+    rel_pos_flash_attn_bwd_fp32.launches += 1
+    dq, dRh, dRw = _bias_chain(q, Rh, Rw, dq, dbh, dbw)
+    return dq, dk, dv, dRh, dRw
+
+
+def rel_pos_flash_attn_bwd(q, k, v, Rh, Rw, scale: float, out, lse, dout):
+    """Launch kernel A-bwd on CUDA tensors: the gradients of
+    `rel_pos_flash_attn_fwd` for the output cotangent `dout`, from the
+    forward's logsumexp `lse`; bf16 on the tensor cores, fp32 on the CUDA
+    cores, any other dtype raises. The kernels read the bias tables of
+    `rel_pos_bias` where they lie, and the chain rule through bh = q.Rh and
+    bw = q.Rw is taken here from their dbh and dbw. Returns (dq, dk, dv,
+    dRh, dRw) in the input dtype. `launches` counts both routes."""
+    if q.dtype == torch.bfloat16:
+        grads = rel_pos_flash_attn_bwd_mma(q, k, v, Rh, Rw, scale, out, lse, dout)
+    elif q.dtype == torch.float32:
+        grads = rel_pos_flash_attn_bwd_fp32(q, k, v, Rh, Rw, scale, out, lse, dout)
+    else:
+        raise TypeError(f"rel_pos_flash_attn_bwd: kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
     rel_pos_flash_attn_bwd.launches += 1
-    dbh = dbh.reshape(B, nh, H, W, H)
-    dbw = dbw.reshape(B, nh, H, W, W)
-    dq = (dq.reshape(B, H, W, nh, hd)
-          + torch.einsum("bhyxi,yid->byxhd", dbh, Rh.float())
-          + torch.einsum("bhyxj,xjd->byxhd", dbw, Rw.float()))
-    qf = q.float()
-    dRh = torch.einsum("bhyxi,byxhd->yid", dbh, qf)
-    dRw = torch.einsum("bhyxj,byxhd->xjd", dbw, qf)
-    dt = q.dtype
-    return dq.to(dt), dk.to(dt), dv.to(dt), dRh.to(dt), dRw.to(dt)
+    return grads
 
 
 class _RelPosFlashAttn(torch.autograd.Function):
@@ -349,6 +434,8 @@ flash_rel_pos_attention.recompute_launches = 0
 rel_pos_flash_attn_mma.launches = 0
 rel_pos_flash_attn_fp32.launches = 0
 rel_pos_flash_attn_bwd.launches = 0
+rel_pos_flash_attn_bwd_mma.launches = 0
+rel_pos_flash_attn_bwd_fp32.launches = 0
 
 
 def drop_path_masks(batch: int, rate: float, generator: Optional[torch.Generator],

@@ -35,10 +35,12 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # per library: extra nvcc flags. NMS compares IoU near its threshold, so its
 # arithmetic must round op by op as the CPU does: no fused multiply-adds.
-# Kernel A's tensor-core route reports its registers and spills.
+# The tensor-core routes of kernels A and A-bwd report their registers and
+# spills.
 KERNELS: Dict[str, Tuple[str, ...]] = {
     "rel_pos_flash_attn_mma": ("-Xptxas", "-v"),
     "rel_pos_flash_attn": (),
+    "rel_pos_flash_attn_bwd_mma": ("-Xptxas", "-v"),
     "rel_pos_flash_attn_bwd": (),
     "ms_deform_attn": (),
     "nms": ("-fmad=false",),
