@@ -9,17 +9,21 @@ nonzero):
   1. device: the card's name and power limit (nvidia-smi), the build of
      the kernel libraries from `uninext_tpu_torch/csrc/` (one nvcc each,
      all started together) and ptxas's registers and spills of the
-     tensor-core routes of kernels A and A-bwd;
-  2. kernels: each forward kernel (A, B, C) against its plain PyTorch
+     tensor-core routes of kernels A and A-bwd and of MSDA and MSDA-bwd;
+  2. kernels: each forward kernel (A, MSDA, NMS) against its plain PyTorch
      version on the card at the slice's shapes, in fp32 and bf16 (kernel A:
      bf16 on the tensor cores, fp32 on the CUDA cores), with both times
      (CUDA events), the least time the card could take (bound) and, where
-     one exists, one PyTorch library call's time;
-  3. backward kernels: A-bwd and B-bwd against autograd through the plain
-     versions at the training shapes, fp32 and bf16 (A-bwd: bf16 on the
-     tensor cores, fp32 on the CUDA cores), timed the same way; A-bwd's
+     one exists, one PyTorch library call's time. MSDA on two location
+     sets (uniform, and shaped like the model's), also over CUDA graph
+     replays, with the L2 volume it moves;
+  3. backward kernels: A-bwd and MSDA-bwd against autograd through the
+     plain versions at the training shapes, fp32 and bf16 (A-bwd: bf16 on
+     the tensor cores, fp32 on the CUDA cores), timed the same way; A-bwd's
      wrapper and its kernels alone also over CUDA graph replays, beside
-     the backward of SDPA with a float bias mask at both shapes;
+     the backward of SDPA with a float bias mask at both shapes; MSDA-bwd
+     on both location sets and with every sample on level 0 or on level 3
+     (whether same-address reductions set its pace);
   3b. labs: the labs' kernels in `csrc/gather_fold.cu` (the fold, TPU
      kernel B of `tools/msda_v6_lab.py`, and the gather probes C0-C2) and
      `csrc/dma_gather.cu` (the DMA probes C3, C4) against their plain
@@ -101,7 +105,7 @@ def phase_device():
     print(f"[device] {torch.cuda.get_device_name(0)}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; {len(_build.KERNELS)} kernel libraries "
           f"built and loaded in {time.perf_counter() - t0:.1f} s")
-    for name in ("rel_pos_flash_attn_mma", "rel_pos_flash_attn_bwd_mma"):
+    for name in ("rel_pos_flash_attn_mma", "rel_pos_flash_attn_bwd_mma", "ms_deform_attn"):
         _print_ptxas(_build.build_log(name))
     return smi.stdout.strip().splitlines()[0]
 
@@ -172,6 +176,65 @@ def _sdpa_args(q5, k, v, rh, rw):
 def _msda_shapes():
     shapes = tuple((IMAGE_HW[0] // s, IMAGE_HW[1] // s) for s in (8, 16, 32))
     return shapes + (((shapes[-1][0] + 1) // 2, (shapes[-1][1] + 1) // 2),)
+
+
+def _msda_model_set(g, B, Lq, shapes, M, P, encoder):
+    """Locations and weights shaped like the model's: reference points at
+    the pixel centres of every level (encoder; the decoder's are uniform in
+    (0, 1)), plus the init offsets of `models/layers.py:sampling_offsets_bias`
+    over each level's size, plus N(0, 0.5 px) noise; softmaxed weights."""
+    import torch
+    from uninext_tpu_torch.models.layers import sampling_offsets_bias
+    dev = g.device
+    L = len(shapes)
+    if encoder:
+        ref = []
+        for h, w in shapes:
+            ys, xs = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                                    indexing="ij")
+            ref.append(torch.stack([(xs + 0.5) / w, (ys + 0.5) / h], -1).reshape(-1, 2))
+        ref = torch.cat(ref)[None].expand(B, Lq, 2)
+    else:
+        ref = torch.rand(B, Lq, 2, device=dev, generator=g)
+    size = torch.tensor([[w, h] for h, w in shapes], device=dev, dtype=torch.float32)
+    off = sampling_offsets_bias(M, L, P).to(dev).reshape(M, L, P, 2)
+    noise = 0.5 * torch.randn(B, Lq, M, L, P, 2, device=dev, generator=g)
+    loc = ref[:, :, None, None, None] + (off + noise) / size[:, None]
+    att = torch.randn(B, Lq, M, L * P, device=dev, generator=g).softmax(-1)
+    return loc.contiguous(), att.reshape(B, Lq, M, L, P)
+
+
+def _off_centres(loc, shapes, margin=1e-3):
+    """`loc` moved at least `margin` pixels off every pixel centre, the kink
+    of bilinear sampling where the gradient w.r.t. the location depends on
+    rounding (grid_sample rescales through [-1, 1], the kernels do not)."""
+    import torch
+    out = loc.clone()
+    for lvl, (h, w) in enumerate(shapes):
+        size = torch.tensor([w, h], device=loc.device, dtype=torch.float64)
+        px = loc[:, :, :, lvl].double() * size - 0.5
+        frac = px - px.floor()
+        px = torch.where(frac < margin, px + margin,
+                         torch.where(frac > 1 - margin, px - margin, px))
+        out[:, :, :, lvl] = ((px + 0.5) / size).float()
+    return out
+
+
+def _msda_corner_rows(shapes, loc):
+    """In-frame bilinear corners of these locations: the value rows the
+    forward gathers and the backward gathers and reduces into, with each
+    sample's `in_range` as in the kernels."""
+    import torch
+    rows = 0
+    for lvl, (h, w) in enumerate(shapes):
+        x = loc[:, :, :, lvl, :, 0].double() * w - 0.5
+        y = loc[:, :, :, lvl, :, 1].double() * h - 0.5
+        x0, y0 = x.floor(), y.floor()
+        inr = (x >= -1) & (x < w) & (y >= -1) & (y < h)
+        for cx in (x0, x0 + 1):
+            for cy in (y0, y0 + 1):
+                rows += int((inr & (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)).sum())
+    return rows
 
 
 def phase_kernels():
@@ -252,38 +315,54 @@ def phase_kernels():
     print(f"[kernel A] tensor-core route, global block: {a['ms']:.4f} ms against SDPA's "
           f"{a['library_ms']:.4f} ms in this run")
 
-    # kernel B: encoder (Lq = S = 20197) and decoder (Lq = 900) calls
+    # MSDA: encoder (Lq = S = 20197) and decoder (Lq = 900) calls, on two
+    # location sets: uniform in [-0.1, 1.1] (the set of the first timings) and
+    # shaped like the model's (`_msda_model_set`, its own generator)
     shapes = _msda_shapes()
     S = sum(a * b for a, b in shapes)
     M, D, L, P = 8, 32, 4, 4
     value32 = torch.randn(1, S, M, D, device=dev, generator=g)
+    gm = torch.Generator(device=dev).manual_seed(10)
+    r = rec["ms_deform_attn_fwd"] = {"max_abs_err": 0.0}
     for label, Lq in (("encoder", S), ("decoder", 900)):
         loc = torch.rand(1, Lq, M, L, P, 2, device=dev, generator=g) * 1.2 - 0.1
         att = torch.rand(1, Lq, M, L * P, device=dev, generator=g).softmax(-1)
         att = att.reshape(1, Lq, M, L, P)
-        for dt in (torch.float32, torch.bfloat16):
-            args = (value32.to(dt), shapes, loc, att)
-            got = msda.ms_deform_attn(*args)
-            want = msda.ms_deform_attn_plain(*args)
-            err = _check(f"ms_deform_attn {label} {dt}", got, want, tol[dt])
-            ms = _timed(lambda: msda.ms_deform_attn(*args), 20)
-            pms = _timed(lambda: msda.ms_deform_attn_plain(*args), 5)
-            print(f"[kernel B] ms_deform_attn {label} Lq={Lq} S={S} M={M} D={D} "
-                  f"{str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol[dt]}) "
-                  f"kernel {ms:.3f} ms, plain {pms:.3f} ms")
-            if dt == torch.bfloat16:
-                r = rec.setdefault("ms_deform_attn_fwd", {"max_abs_err": 0.0})
+        sets = {"uniform": (loc, att),
+                "model": _msda_model_set(gm, 1, Lq, shapes, M, P, label == "encoder")}
+        for set_name, (loc, att) in sets.items():
+            for dt in (torch.float32, torch.bfloat16):
+                args = (value32.to(dt), shapes, loc, att)
+                got = msda.ms_deform_attn(*args)
+                want = msda.ms_deform_attn_plain(*args)
+                err = _check(f"ms_deform_attn {label} {set_name} {dt}", got, want, tol[dt])
+                ms = _timed(lambda: msda.ms_deform_attn(*args), 20)
+                gms = event_ms(lambda: msda.ms_deform_attn(*args), 20)
+                pms = _timed(lambda: msda.ms_deform_attn_plain(*args), 5)
+                rows = _msda_corner_rows(shapes, loc)
+                vol = rows * D * value32.new_empty((), dtype=dt).element_size()
+                print(f"[MSDA] ms_deform_attn {label} {set_name} Lq={Lq} S={S} M={M} D={D} "
+                      f"{str(dt)[6:]}: max_abs_err={err:.3g} (tol {tol[dt]}) kernel "
+                      f"{ms:.4f} ms (CUDA graph replays {gms:.4f} ms), plain {pms:.3f} ms; "
+                      f"L2 volume {rows} corner rows x {vol // rows} B = {vol / 1e6:.1f} MB, "
+                      f"{vol / gms / 1e9:.2f} TB/s")
+                if dt != torch.bfloat16:
+                    continue
                 r["max_abs_err"] = max(r["max_abs_err"], err)
-                if label == "encoder":
+                key = {"encoder": "", "decoder": "decoder_"}[label] + (
+                    "" if set_name == "uniform" else "model_")
+                r.update({key + "ms": ms, key + "graph_ms": gms, key + "plain_ms": pms})
+                if label == "encoder" and set_name == "uniform":
                     n = Lq * M * L * P
                     b_ms, b_by = _bound(2 * S * M * D + 4 * 3 * n + 2 * Lq * M * D,
                                         n * 10 * D, "fp32")
-                    r.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
-                             bound_by=b_by, shape=f"encoder B=1 Lq={Lq} bf16")
-                    print(f"[kernel B] bound {b_ms:.4f} ms ({b_by}); no single "
-                          f"PyTorch call computes MSDA")
+                    r.update(plain_ms=pms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                             shape=f"encoder B=1 Lq={Lq} bf16, uniform locations")
+                    print(f"[MSDA] bound {b_ms:.4f} ms ({b_by}); no single PyTorch call "
+                          f"computes MSDA")
+    torch.cuda.empty_cache()
 
-    # kernel C: 900 boxes in 4 classes around 40 centres (many overlaps), exact
+    # NMS: 900 boxes in 4 classes around 40 centres (many overlaps), exact
     N = 900
     centers = torch.rand(1, 40, 2, device=dev, generator=g) * 0.6 + 0.2
     pick = torch.randint(0, 40, (1, N), device=dev, generator=g)
@@ -304,7 +383,7 @@ def phase_kernels():
     counts = torch.bincount(classes[0], minlength=4).double()
     pairs = float((counts * (counts - 1) / 2).sum())    # same-class pairs
     b_ms, b_by = _bound(N * (16 + 4 + 8 + 1), pairs * 12, "fp32")
-    print(f"[kernel C] batched_nms N={N}: keep masks identical ({kept} kept), "
+    print(f"[NMS] batched_nms N={N}: keep masks identical ({kept} kept), "
           f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); "
           f"no PyTorch call computes NMS (torchvision is absent)")
     rec["nms"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "library_ms": None,
@@ -344,7 +423,7 @@ def _bwd_kernels_alone(q5, k, v, rh, rw, scale, out, lse, cot):
 
 
 def phase_backward_kernels():
-    """A-bwd and B-bwd vs autograd through the plain versions at the
+    """A-bwd and MSDA-bwd vs autograd through the plain versions at the
     training shapes (bs=2). Returns their records for the JSON line."""
     import torch
     import torch.nn.functional as F
@@ -353,8 +432,8 @@ def phase_backward_kernels():
     from uninext_tpu_torch.tools import event_ms
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
-    # relative to each gradient's largest entry. fp32: summation order (B-bwd
-    # adds dvalue with fp32 atomics, in an order that changes between runs).
+    # relative to each gradient's largest entry. fp32: summation order (MSDA-
+    # bwd adds dvalue with fp32 atomics, in an order that changes between runs).
     # bf16: each side rounds its gradients to bf16 once (2^-8 = 3.9e-3 of
     # the value) after fp32 sums of other orders; A-bwd's tensor-core
     # kernels also round P and dS to bf16 before the products that read
@@ -448,55 +527,102 @@ def phase_backward_kernels():
           f"{a['library_ms']:.4f} ms; window blocks wrapper {a['window_ms']:.4f} ms, kernels "
           f"{a['window_kernel_ms']:.4f} ms against {a['window_library_ms']:.4f} ms, in this run")
 
+    # MSDA-bwd on the two location sets of phase_kernels, then the
+    # contention diagnostic: every sample on one level of 15200 or 247 pixels
     shapes = _msda_shapes()
     S = sum(a * b for a, b in shapes)
     M, D, L, P = 8, 32, 4, 4
+    gm = torch.Generator(device=dev).manual_seed(11)
+    r = rec["ms_deform_attn_bwd"] = {"max_abs_err": 0.0, "max_rel_err": 0.0}
     for label, Lq in (("encoder", S), ("decoder", 900)):
         value0 = torch.randn(B, S, M, D, device=dev, generator=g)
         loc0 = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.2 - 0.1
         att0 = torch.rand(B, Lq, M, L * P, device=dev, generator=g).softmax(-1)
         att0 = att0.reshape(B, Lq, M, L, P)
-        for dt in (torch.float32, torch.bfloat16):
-            cot = torch.randn(B, Lq, M * D, device=dev, generator=g).to(dt)
-            grads, graphs = [], []
-            for fn in (msda.ms_deform_attn, msda.ms_deform_attn_plain):
-                value = value0.to(dt).requires_grad_()
-                loc, att = loc0.clone().requires_grad_(), att0.clone().requires_grad_()
-                out = fn(value, shapes, loc, att)
-                grads.append(torch.autograd.grad(out, (value, loc, att), cot,
-                                                 retain_graph=True))
-                graphs.append((out, (value, loc, att)))
-            errs, rels = zip(*(
-                _check_rel(f"ms_deform_attn_bwd {label} {dt} {n}", a, b, tol[dt])
-                for n, a, b in zip(("dvalue", "dloc", "datt"), *grads)))
-            fargs = (value0.to(dt), shapes, loc0, att0)
-            ms = _timed(lambda: msda.ms_deform_attn_bwd(*fargs, cot), 10)
-            pout, pin = graphs[1]
-            pms = _timed(lambda: torch.autograd.grad(pout, pin, cot, retain_graph=True), 3)
-            del graphs, grads, pout, pin
-            print(f"[kernel B-bwd] ms_deform_attn_bwd {label} B={B} Lq={Lq} S={S} "
-                  f"{str(dt)[6:]}: max_abs_err dvalue/dloc/datt = "
-                  + "/".join(f"{e:.3g}" for e in errs) + ", / max |grad| = "
-                  + "/".join(f"{e:.3g}" for e in rels)
-                  + f" (tol {tol[dt]}) kernel {ms:.3f} ms, "
-                  f"plain backward {pms:.3f} ms")
-            if dt == torch.bfloat16:
-                r = rec.setdefault("ms_deform_attn_bwd",
-                                   {"max_abs_err": 0.0, "max_rel_err": 0.0})
+        cots = {dt: torch.randn(B, Lq, M * D, device=dev, generator=g).to(dt)
+                for dt in (torch.float32, torch.bfloat16)}
+        sets = {"uniform": (loc0, att0),
+                "model": _msda_model_set(gm, B, Lq, shapes, M, P, label == "encoder")}
+        for set_name, (loc0, att0) in sets.items():
+            for dt in (torch.float32, torch.bfloat16):
+                cot = cots[dt]
+                errs, rels, pms = _msda_bwd_check(
+                    f"{label} {set_name} {dt}", value0.to(dt), shapes, loc0, att0, cot, tol[dt])
+                fargs = (value0.to(dt), shapes, loc0, att0)
+                ms = _timed(lambda: msda.ms_deform_attn_bwd(*fargs, cot), 10)
+                gms = event_ms(lambda: msda.ms_deform_attn_bwd(*fargs, cot), 10)
+                rows = _msda_corner_rows(shapes, loc0)
+                e = value0.new_empty((), dtype=dt).element_size()
+                vol = rows * D * (e + 4)
+                print(f"[MSDA-bwd] ms_deform_attn_bwd {label} {set_name} B={B} Lq={Lq} "
+                      f"S={S} {str(dt)[6:]}: max_abs_err dvalue/dloc/datt = "
+                      + "/".join(f"{x:.3g}" for x in errs) + ", / max |grad| = "
+                      + "/".join(f"{x:.3g}" for x in rels)
+                      + f" (tol {tol[dt]}) kernel {ms:.4f} ms (CUDA graph replays "
+                      f"{gms:.4f} ms), plain backward {pms:.3f} ms; L2 volume {rows} "
+                      f"corner rows x ({D * e} B read + {D * 4} B reduced) = "
+                      f"{vol / 1e6:.1f} MB, {vol / gms / 1e9:.2f} TB/s")
+                if dt != torch.bfloat16:
+                    continue
                 r["max_abs_err"] = max(r["max_abs_err"], *errs)
                 r["max_rel_err"] = max(r["max_rel_err"], *rels)
-                if label == "encoder":
+                key = {"encoder": "", "decoder": "decoder_"}[label] + (
+                    "" if set_name == "uniform" else "model_")
+                r.update({key + "ms": ms, key + "graph_ms": gms, key + "plain_ms": pms})
+                if label == "encoder" and set_name == "uniform":
                     n = B * Lq * M * L * P
                     # value read + dvalue written (bf16), loc/att read and
                     # dloc/datt written (fp32), dout read once (bf16)
                     b_ms, b_by = _bound(2 * 2 * B * S * M * D + 2 * 4 * 3 * n
-                                        + 2 * B * Lq * M * D, n * (16 * D + 20),
-                                        "fp32")
-                    r.update(ms=ms, plain_ms=pms, library_ms=None, bound_ms=b_ms,
-                             bound_by=b_by, shape=f"encoder B={B} Lq={Lq} bf16")
-                    print(f"[kernel B-bwd] bound {b_ms:.4f} ms ({b_by}); no single "
-                          f"PyTorch call computes MSDA's gradients")
+                                        + 2 * B * Lq * M * D, n * (16 * D + 20), "fp32")
+                    r.update(plain_ms=pms, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                             shape=f"encoder B={B} Lq={Lq} bf16, uniform locations")
+                    print(f"[MSDA-bwd] bound {b_ms:.4f} ms ({b_by}); no single PyTorch "
+                          f"call computes MSDA's gradients")
+        torch.cuda.empty_cache()
+    # diagnostic: the encoder's work (B x 20197 queries x 8 heads x 16
+    # samples, bf16), every sample on one level: level 0 (100 x 152) spreads
+    # the dvalue reductions over 15200 pixels, level 3 (13 x 19) stacks them
+    # on 247, about 1300 on each address at bs=2
+    for lvl in (0, 3):
+        h, w = shapes[lvl]
+        one = ((h, w),)
+        value = torch.randn(B, h * w, M, D, device=dev, generator=gm).to(torch.bfloat16)
+        loc = _off_centres(torch.rand(B, S, M, 1, L * P, 2, device=dev, generator=gm), one)
+        att = torch.rand(B, S, M, 1, L * P, device=dev, generator=gm).softmax(-1)
+        cot = torch.randn(B, S, M * D, device=dev, generator=gm).to(torch.bfloat16)
+        errs, rels, _ = _msda_bwd_check(f"level {lvl} only bf16", value, one, loc, att, cot,
+                                           tol[torch.bfloat16], plain_ms=False)
+        fms = event_ms(lambda: msda.ms_deform_attn(value, one, loc, att), 10)
+        gms = event_ms(lambda: msda.ms_deform_attn_bwd(value, one, loc, att, cot), 10)
+        r[f"level{lvl}_graph_ms"] = gms
+        print(f"[MSDA-bwd] diagnostic, every sample on level {lvl} ({h}x{w}, {h * w} px), "
+              f"B={B} Lq={S} bf16: backward {gms:.4f} ms, forward {fms:.4f} ms (CUDA graph "
+              f"replays); max_abs_err dvalue/dloc/datt = "
+              + "/".join(f"{x:.3g}" for x in errs) + ", / max |grad| = "
+              + "/".join(f"{x:.3g}" for x in rels))
     return rec
+
+
+def _msda_bwd_check(what, value0, shapes, loc0, att0, cot, tol, plain_ms=True):
+    """MSDA-bwd against autograd through the plain version. Returns the
+    absolute and relative errors of (dvalue, dloc, datt) and the plain
+    backward's ms (None unless `plain_ms`)."""
+    import torch
+    from uninext_tpu_torch.ops import msda
+    grads, graphs = [], []
+    for fn in (msda.ms_deform_attn, msda.ms_deform_attn_plain):
+        value = value0.detach().requires_grad_()
+        loc, att = loc0.clone().requires_grad_(), att0.clone().requires_grad_()
+        out = fn(value, shapes, loc, att)
+        grads.append(torch.autograd.grad(out, (value, loc, att), cot, retain_graph=True))
+        graphs.append((out, (value, loc, att)))
+    errs, rels = zip(*(_check_rel(f"ms_deform_attn_bwd {what} {n}", a, b, tol)
+                       for n, a, b in zip(("dvalue", "dloc", "datt"), *grads)))
+    pout, pin = graphs[1]
+    pms = (_timed(lambda: torch.autograd.grad(pout, pin, cot, retain_graph=True), 3)
+           if plain_ms else None)
+    return errs, rels, pms
 
 
 def _bag_index(rows, S, device):
@@ -782,7 +908,7 @@ def phase_small_reference():
         if not err <= 1e-3 * scale:
             raise AssertionError(f"small step gradient {n}: {err} > 1e-3 x {scale}")
         grad_err = max(grad_err, err / scale)
-    print(f"[reference] small ViT train step, fp32, card (A, A-bwd, B, B-bwd) vs "
+    print(f"[reference] small ViT train step, fp32, card (A, A-bwd, MSDA, MSDA-bwd) vs "
           f"CPU (plain): {len(cl)} losses, max rel err {loss_err:.3g} (tol 1e-4); "
           f"{len(cp)} gradients, max err / leaf max {grad_err:.3g} (tol 1e-3)")
     torch.cuda.synchronize()
@@ -1043,7 +1169,8 @@ def phase_training(profile: bool):
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
-    intervals), and the device time of its 25 largest kernels by name."""
+    intervals), and the device time of its 25 largest kernels by name and
+    of the port's kernels below them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1073,8 +1200,13 @@ def _profile(fn, label):
     print(f"[profile] {label}: host {host_ms:.1f} ms, device span {span:.1f} ms, "
           f"kernel time {total:.1f} ms, device busy {busy / 1e3:.1f} ms "
           f"(idle share {100 * (1 - busy / 1e3 / span) if span else 0:.1f}%)")
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    for name, ms in ranked[:25]:
         print(f"[profile] {ms:10.3f} ms  {name[:160]}")
+    # the port's own kernels (anonymous namespaces of csrc/) below the 25
+    for name, ms in ranked[25:]:
+        if name.startswith("void (anonymous namespace)::"):
+            print(f"[profile] {ms:10.3f} ms  {name[:160]} (the port's kernel)")
 
 
 SOURCES = {
@@ -1142,7 +1274,10 @@ def main():
                         "bound_share": r["bound_ms"] / r["ms"],
                         **{k: r[k] for k in ("max_rel_err", "kernel_ms", "window_ms",
                                              "window_kernel_ms", "window_plain_ms",
-                                             "window_library_ms", "window_bound_ms")
+                                             "window_library_ms", "window_bound_ms",
+                                             "graph_ms", "model_ms", "model_graph_ms",
+                                             "decoder_ms", "decoder_model_ms", "level0_graph_ms",
+                                             "level3_graph_ms")
                            if k in r}})
         k = kernels[-1]
         if "kernel_ms" in k:

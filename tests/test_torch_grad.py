@@ -1,7 +1,7 @@
-"""Gradients of the plain versions of kernels A and B against the JAX
+"""Gradients of the plain versions of kernel A and MSDA against the JAX
 package, on the CPU, fp32.
 
-On the card the port's gradients come from kernels A-bwd and B-bwd, which
+On the card the port's gradients come from kernels A-bwd and MSDA-bwd, which
 tests/test_torch_kernels_cuda.py holds to autograd through these plain
 versions; here the plain versions' autograd is held to JAX: for MSDA,
 `jax.grad` of `ms_deform_attn` through its hand-written VJP
@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import perturb
+from tests.torch_port_common import TINY_LEVELS, msda_locations, perturb
 from uninext_tpu.models import vit as jvit
 from uninext_tpu.ops import msda as jmsda
 from uninext_tpu_torch.models import vit
@@ -28,24 +28,39 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("jax_fn", ["ms_deform_attn", "ms_deform_attn_unpacked"])
-def test_msda_plain_grads_match_jax(jax_fn):
+_JAX_MSDA = ("ms_deform_attn", "ms_deform_attn_unpacked")
+
+
+@pytest.mark.parametrize("jax_fn,geometry", [
+    *(pytest.param(fn, "uniform", id=fn) for fn in _JAX_MSDA),
+    *(pytest.param(fn, geo, id=f"{fn}-{geo}") for geo in ("clustered", "tiny")
+      for fn in _JAX_MSDA)])
+def test_msda_plain_grads_match_jax(jax_fn, geometry):
+    """Uniform locations, samples clustered in 2 x 2 pixels (also across the
+    frame's edge), and levels of 1x1 and 1x2 with odd widths. The new
+    geometries keep every location 1e-3 px off a pixel centre, where the
+    gradient w.r.t. the location has a kink: grid_sample rescales through
+    [-1, 1] and may land on either side of it."""
     rng = np.random.RandomState(31)
     B, Lq, M, D, P = 2, 11, 2, 8, 3
-    L = len(SHAPES)
-    S = sum(h * w for h, w in SHAPES)
+    shapes = TINY_LEVELS if geometry == "tiny" else SHAPES
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
     value = rng.randn(B, S, M, D).astype(np.float32)
-    # about a fifth of the samples fall outside [0, 1]: zero-padding path
-    loc = rng.uniform(-0.15, 1.15, (B, Lq, M, L, P, 2)).astype(np.float32)
+    if geometry == "uniform":
+        # about a fifth of the samples fall outside [0, 1]: zero-padding path
+        loc = rng.uniform(-0.15, 1.15, (B, Lq, M, L, P, 2)).astype(np.float32)
+    else:
+        loc = msda_locations(rng, shapes, B, Lq, M, P, geometry, margin=1e-3)
     att = rng.rand(B, Lq, M, L, P).astype(np.float32)
     cot = rng.randn(B, Lq, M * D).astype(np.float32)
 
     def jloss(v, lo, a):
-        return (getattr(jmsda, jax_fn)(v, SHAPES, lo, a) * cot).sum()
+        return (getattr(jmsda, jax_fn)(v, shapes, lo, a) * cot).sum()
 
     want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(value, loc, att)
     ts = [torch.from_numpy(a).requires_grad_() for a in (value, loc, att)]
-    (msda.ms_deform_attn(ts[0], SHAPES, ts[1], ts[2]) * torch.from_numpy(cot)).sum().backward()
+    (msda.ms_deform_attn(ts[0], shapes, ts[1], ts[2]) * torch.from_numpy(cot)).sum().backward()
     for name, t, w in zip(("dvalue", "dloc", "datt"), ts, want):
         # fp32 sums of a few bilinear terms; dloc carries the factors W_l, H_l
         np.testing.assert_allclose(_np(t.grad), np.asarray(w), rtol=1e-5, atol=2e-5,

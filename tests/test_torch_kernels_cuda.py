@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (A on both routes, A-bwd, B, B-bwd, C, and the
-labs' fold, gather and DMA-probe kernels) vs their plain PyTorch versions,
-on the card. A backward kernel is held to autograd through the
+"""The port's CUDA kernels (A on both routes, A-bwd, MSDA, MSDA-bwd, NMS,
+and the labs' fold, gather and DMA-probe kernels) vs their plain PyTorch
+versions, on the card. A backward kernel is held to autograd through the
 plain version of its forward.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
@@ -15,7 +15,7 @@ plain versions (which compute in fp32) and may differ by one bf16 rounding
 of the output (kernel A's tensor-core route also rounds each probability
 to bf16 before the P.V product, as the Pallas kernel does: 2^-9 of each
 term of a weighted mean, far below that rounding). Gradients are compared relative to their largest entry:
-fp32 differs in summation order (B-bwd adds dvalue with atomics, in an
+fp32 differs in summation order (MSDA-bwd adds dvalue with atomics, in an
 order that changes from run to run); bf16 gradients are rounded to bf16 on
 both sides.
 """
@@ -115,23 +115,87 @@ def test_rel_pos_flash_attn_mma_refuses_other_head_dims(dev, hd):
     assert [r.launches for r in routes] == before
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,Lq", [(32, 300), (16, 77), (40, 50)])
-def test_ms_deform_attn_matches_plain(dev, dtype, D, Lq):
-    g = torch.Generator(device=dev).manual_seed(D + Lq)
-    shapes = ((20, 30), (10, 15), (5, 8), (3, 4))
-    S = sum(h * w for h, w in shapes)
+MSDA_LEVELS = ((20, 30), (10, 15), (5, 8), (3, 4))
+# (geometry, D, Lq). "card": inputs drawn on the card (`_msda_card_case`),
+# uniform locations at D 32 and 16 (and 40 forward only). The others come
+# from numpy (`_msda_case`): samples clustered in 2 x 2 pixels; levels of
+# 1x1, 1x2 and odd widths; Lq that fill no whole warp, block or wave of
+# tasks; locations on the frame's and the pixels' edges only forward (the
+# gradient has kinks there).
+_card = lambda D, Lq: pytest.param("card", D, Lq, id=f"{D}-{Lq}")
+_numpy = lambda g, D, Lq: pytest.param(g, D, Lq, id=f"{g}-{D}-{Lq}")
+MSDA_NEW_CASES = [_numpy("uniform", 40, 50), _numpy("clustered", 32, 257),
+                  _numpy("clustered", 40, 31), _numpy("tiny", 16, 33),
+                  _numpy("tiny", 32, 129)]
+MSDA_FWD_CASES = ([_card(32, 300), _card(16, 77), _card(40, 50)] + MSDA_NEW_CASES[1:]
+                  + [_numpy("edges", 32, 61), _numpy("edges", 16, 19)])
+MSDA_BWD_CASES = [_card(32, 300), _card(16, 77)] + MSDA_NEW_CASES
+
+
+def _msda_card_case(dev, D, Lq, g, att_softmax):
+    """fp32 value, loc, att on the card from generator `g`: uniform
+    locations in [-0.15, 1.15], B = 2."""
+    S = sum(h * w for h, w in MSDA_LEVELS)
     B, M, L, P = 2, 8, 4, 4
-    value = torch.randn(B, S, M, D, device=dev, generator=g).to(dtype)
+    value = torch.randn(B, S, M, D, device=dev, generator=g)
     loc = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.3 - 0.15
-    att = torch.rand(B, Lq, M, L * P, device=dev, generator=g).softmax(-1)
-    att = att.reshape(B, Lq, M, L, P)
+    if att_softmax:
+        att = torch.rand(B, Lq, M, L * P, device=dev, generator=g).softmax(-1)
+        att = att.reshape(B, Lq, M, L, P)
+    else:
+        att = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
+    return value, MSDA_LEVELS, loc, att
+
+
+def _msda_case(dev, dtype, geometry, D, Lq, seed, margin=0.0):
+    """value (dtype), loc, att and the levels from numpy; B = 2, each image
+    with its own locations; `margin` as `msda_locations`'s."""
+    from torch_port_common import TINY_LEVELS, msda_locations
+    rng = np.random.RandomState(seed)
+    shapes = TINY_LEVELS if geometry == "tiny" else MSDA_LEVELS
+    S = sum(h * w for h, w in shapes)
+    B, M, L, P = 2, 8, len(shapes), 4
+    loc = msda_locations(rng, shapes, B, Lq, M, P, geometry, margin)
+    value = rng.randn(B, S, M, D).astype(np.float32)
+    att = rng.rand(B, Lq, M, L * P).astype(np.float32)
+    att = np.exp(att) / np.exp(att).sum(-1, keepdims=True)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return t(value).to(dtype), shapes, t(loc), t(att.reshape(B, Lq, M, L, P))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("geometry,D,Lq", MSDA_FWD_CASES)
+def test_ms_deform_attn_matches_plain(dev, dtype, geometry, D, Lq):
+    if geometry == "card":
+        g = torch.Generator(device=dev).manual_seed(D + Lq)
+        value, shapes, loc, att = _msda_card_case(dev, D, Lq, g, att_softmax=True)
+        value = value.to(dtype)
+    else:
+        value, shapes, loc, att = _msda_case(dev, dtype, geometry, D, Lq, D + Lq)
     before = msda.ms_deform_attn.launches
     got = msda.ms_deform_attn(value, shapes, loc, att)
     assert msda.ms_deform_attn.launches == before + 1
     want = msda.ms_deform_attn_plain(value, shapes, loc, att)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 12), (torch.bfloat16, 264),
+                                     (torch.float32, 10), (torch.float32, 132)])
+def test_ms_deform_attn_refuses_other_head_widths(dev, dtype, D):
+    """D not a whole number of 16-byte pieces, or above 32 of them, raises
+    before any launch: the forward, under autograd too, and the backward."""
+    value, shapes, loc, att = _msda_case(dev, dtype, "uniform", D, 5, D)
+    counters = (msda.ms_deform_attn, msda.ms_deform_attn_bwd)
+    before = [c.launches for c in counters]
+    with pytest.raises(ValueError, match="multiple of"):
+        msda.ms_deform_attn(value, shapes, loc, att)
+    with pytest.raises(ValueError, match="multiple of"):
+        msda.ms_deform_attn(value.requires_grad_(), shapes, loc, att)
+    with pytest.raises(ValueError, match="multiple of"):
+        msda.ms_deform_attn_bwd(value.detach(), shapes, loc, att,
+                                torch.zeros(2, 5, 8 * D, device=dev, dtype=dtype))
+    assert [c.launches for c in counters] == before
 
 
 @pytest.mark.parametrize("B,N", [(2, 900), (3, 130), (1, 64)])
@@ -244,15 +308,18 @@ def test_rel_pos_flash_attn_bwd_mma_refuses_other_head_dims(dev, hd):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,Lq", [(32, 300), (16, 77)])
-def test_ms_deform_attn_bwd_matches_plain(dev, dtype, D, Lq):
+@pytest.mark.parametrize("geometry,D,Lq", MSDA_BWD_CASES)
+def test_ms_deform_attn_bwd_matches_plain(dev, dtype, geometry, D, Lq):
+    """The numpy cases keep every location 1e-3 px off a pixel centre (the
+    kink of the gradient w.r.t. the location); the clustered cases stack
+    the dvalue reductions of a head onto a few pixels."""
     g = torch.Generator(device=dev).manual_seed(D * Lq)
-    shapes = ((20, 30), (10, 15), (5, 8), (3, 4))
-    S = sum(h * w for h, w in shapes)
-    B, M, L, P = 2, 8, 4, 4
-    value0 = torch.randn(B, S, M, D, device=dev, generator=g)
-    loc0 = torch.rand(B, Lq, M, L, P, 2, device=dev, generator=g) * 1.3 - 0.15
-    att0 = torch.rand(B, Lq, M, L, P, device=dev, generator=g)
+    if geometry == "card":
+        value0, shapes, loc0, att0 = _msda_card_case(dev, D, Lq, g, att_softmax=False)
+    else:
+        value0, shapes, loc0, att0 = _msda_case(dev, torch.float32, geometry, D, Lq,
+                                                D * Lq, margin=1e-3)
+    B, M = value0.shape[0], value0.shape[2]
     cot = torch.randn(B, Lq, M * D, device=dev, generator=g).to(dtype)
     grads = []
     before = msda.ms_deform_attn_bwd.launches
@@ -269,8 +336,8 @@ def test_ms_deform_attn_bwd_matches_plain(dev, dtype, D, Lq):
 
 def test_tiny_train_step_on_card_matches_cpu(dev):
     """One train step's losses and gradients of the tiny ViT config, fp32:
-    kernels (A, A-bwd, B, B-bwd) on the card vs the plain versions on the
-    CPU, with the same weights, batch and DN noise."""
+    kernels (A, A-bwd, MSDA, MSDA-bwd) on the card vs the plain versions on
+    the CPU, with the same weights, batch and DN noise."""
     from torch_port_common import detection_inputs, detection_targets, tiny_vit_config
     from uninext_tpu_torch.engine.train import loss_and_grads, loss_weights
     from uninext_tpu_torch.models.detr import build_model

@@ -13,7 +13,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from tests.torch_port_common import perturb
+from tests.torch_port_common import (MSDA_GEOMETRIES, TINY_LEVELS, msda_locations,
+                                     perturb)
 from uninext_tpu.models import layers as jlayers
 from uninext_tpu.models import position_encoding as jpos
 from uninext_tpu.models import vit as jvit
@@ -90,37 +91,53 @@ def test_get_sine_pos_embed_matches_jax():
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=2e-6)
 
 
-# ---- MSDA (kernel B's plain version) -----------------------------------------
+# ---- MSDA (the plain version, the card kernel's yardstick) -------------------
 
 SHAPES = ((6, 7), (3, 4), (2, 2))
 
 
-def _msda_inputs(seed, Lq=11, M=2, D=8, P=3):
+def _msda_inputs(seed, Lq=11, M=2, D=8, P=3, geometry="uniform"):
+    """value, loc, att and the level shapes. "uniform" at SHAPES is the
+    original draw; the other geometries come from `msda_locations` ("tiny"
+    at its levels of 1x1, 1x2 and odd widths)."""
     rng = np.random.RandomState(seed)
-    S = sum(h * w for h, w in SHAPES)
-    L = len(SHAPES)
+    shapes = TINY_LEVELS if geometry == "tiny" else SHAPES
+    S = sum(h * w for h, w in shapes)
+    L = len(shapes)
     value = rng.randn(2, S, M, D).astype(np.float32)
-    # about a fifth of the samples fall outside [0, 1]: zero-padding path
-    loc = rng.uniform(-0.15, 1.15, (2, Lq, M, L, P, 2)).astype(np.float32)
+    if geometry == "uniform":
+        # about a fifth of the samples fall outside [0, 1]: zero-padding path
+        loc = rng.uniform(-0.15, 1.15, (2, Lq, M, L, P, 2)).astype(np.float32)
+    else:
+        loc = msda_locations(rng, shapes, 2, Lq, M, P, geometry)
     att = rng.rand(2, Lq, M, L, P).astype(np.float32)
     att /= att.reshape(2, Lq, M, -1).sum(-1)[..., None, None]
-    return value, loc, att
+    return value, loc, att, shapes
 
 
-@pytest.mark.parametrize("jax_fn", ["ms_deform_attn", "ms_deform_attn_unpacked"])
-def test_msda_plain_matches_jax(jax_fn):
-    value, loc, att = _msda_inputs(5)
-    got = msda.ms_deform_attn_plain(torch.from_numpy(value), SHAPES,
+_JAX_MSDA = ("ms_deform_attn", "ms_deform_attn_unpacked")
+
+
+@pytest.mark.parametrize("jax_fn,geometry", [
+    *(pytest.param(fn, "uniform", id=fn) for fn in _JAX_MSDA),
+    *(pytest.param(fn, geo, id=f"{fn}-{geo}") for geo in MSDA_GEOMETRIES[1:]
+      for fn in _JAX_MSDA)])
+def test_msda_plain_matches_jax(jax_fn, geometry):
+    """Uniform locations, samples clustered in 2 x 2 pixels (also across the
+    frame's edge), levels of 1x1 and 1x2 with odd widths, and locations on
+    the frame's edges, pixel edges and pixel centres."""
+    value, loc, att, shapes = _msda_inputs(5, geometry=geometry)
+    got = msda.ms_deform_attn_plain(torch.from_numpy(value), shapes,
                                     torch.from_numpy(loc), torch.from_numpy(att))
-    want = getattr(jmsda, jax_fn)(jnp.asarray(value), SHAPES, jnp.asarray(loc),
+    want = getattr(jmsda, jax_fn)(jnp.asarray(value), shapes, jnp.asarray(loc),
                                   jnp.asarray(att))
-    # fp32 bilinear sums of 4 corners x 9 samples; grid_sample rescales the
-    # location through [-1, 1], which moves the last bits of the weights
+    # fp32 bilinear sums of 4 corners x 9 or 12 samples; grid_sample rescales
+    # the location through [-1, 1], which moves the last bits of the weights
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
 
 
 def test_msda_wrapper_runs_plain_on_cpu_and_counts_nothing():
-    value, loc, att = _msda_inputs(6)
+    value, loc, att, _ = _msda_inputs(6)
     before = msda.ms_deform_attn.launches
     args = (torch.from_numpy(value), SHAPES, torch.from_numpy(loc),
             torch.from_numpy(att))
@@ -176,7 +193,7 @@ def test_multihead_attention_matches_jax_with_blocking_mask():
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
 
 
-# ---- NMS (kernel C's plain version) ------------------------------------------
+# ---- NMS (the plain version) --------------------------------------------------
 
 def _nms_inputs(seed, N=120):
     """Random boxes in 3 classes, 10% invalid, plus pairs whose IoU sits a
@@ -290,7 +307,7 @@ def test_wrappers_refuse_other_devices():
     q, k, v, Rh, Rw = (torch.from_numpy(a).to("meta") for a in _attn_inputs(12, 3, 3))
     with pytest.raises(ValueError, match="unsupported device"):
         vit.flash_rel_pos_attention(q, k, v, Rh, Rw, 0.3)
-    value, loc, att = (torch.from_numpy(a).to("meta") for a in _msda_inputs(13))
+    value, loc, att = (torch.from_numpy(a).to("meta") for a in _msda_inputs(13)[:3])
     with pytest.raises(ValueError, match="unsupported device"):
         msda.ms_deform_attn(value, SHAPES, loc, att)
     b, s, c, val = (torch.from_numpy(a)[None].to("meta") for a in _nms_inputs(14))

@@ -37,6 +37,44 @@ def detection_inputs(seed=0, B=2, H=64, W=96, T=16):
     return images, img_mask, sizes, ids, tmask
 
 
+# MSDA location sets: (geometry, level shapes). "tiny" has levels of 1x1 and
+# 1x2 and odd widths; "edges" puts every coordinate on the frame's edges (0,
+# 1), a pixel edge or a pixel centre, where grid_sample's rescaling through
+# [-1, 1] may round to either side (continuous in the forward only).
+MSDA_GEOMETRIES = ("uniform", "clustered", "tiny", "edges")
+TINY_LEVELS = ((1, 1), (1, 2), (3, 5), (2, 7))
+
+
+def msda_locations(rng, shapes, B, Lq, M, P, geometry, margin=0.0):
+    """Sampling locations (B, Lq, M, L, P, 2), float32, of one geometry:
+    "uniform" (and "tiny") in [-0.15, 1.15], a fifth of them out of frame;
+    "clustered": the samples of each (image, head, level) within a 2 x 2
+    pixel box at a random place (also across the frame's edge); "edges": on
+    multiples of half a pixel. Each image draws its own. `margin` > 0 moves
+    every location at least that many pixels off a pixel centre (bilinear
+    sampling's kink, where gradients depend on rounding)."""
+    L = len(shapes)
+    loc = np.empty((B, Lq, M, L, P, 2), np.float32)
+    for lvl, (H, W) in enumerate(shapes):
+        size = np.array([W, H], np.float64)
+        if geometry in ("uniform", "tiny"):
+            px = rng.uniform(-0.15, 1.15, (B, Lq, M, P, 2)) * size - 0.5
+        elif geometry == "clustered":
+            corner = rng.randint(-1, size.astype(int), (B, 1, M, 1, 2))
+            px = corner + rng.uniform(0, 2, (B, Lq, M, P, 2))
+        elif geometry == "edges":
+            half = rng.randint(0, 2 * size.astype(int) + 1, (B, Lq, M, P, 2))
+            px = half / 2 - 0.5
+        else:
+            raise ValueError(geometry)
+        if margin:
+            frac = px - np.floor(px)
+            px = np.where(frac < margin, px + margin,
+                          np.where(frac > 1 - margin, px - margin, px))
+        loc[:, :, :, lvl] = (px + 0.5) / size
+    return loc
+
+
 def perturb(params, seed=1, scale=0.05):
     """Add seeded noise to every leaf, so zero- and constant-initialised
     parameters (biases, rel-pos tables, offsets) carry information through

@@ -106,7 +106,7 @@ def sampling_offsets_bias(n_heads: int, n_levels: int, n_points: int
 
 
 class MSDeformAttn(nn.Module):
-    """Projections around kernel B (uninext_tpu/models/layers.py:73-133).
+    """Projections around MSDA (uninext_tpu/models/layers.py:73-133).
 
     forward(query (B,Lq,C), reference_points (B,Lq,L,2|4), value_flatten
     (B,S,C), value_mask (B,S) True=padding, spatial_shapes) -> (B,Lq,C).

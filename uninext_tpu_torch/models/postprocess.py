@@ -1,6 +1,6 @@
 """Inference postprocessing, mirroring `uninext_tpu/models/postprocess.py`:
 grounding -> OD logits (mean over each class's tokens), IoU-aware score
-sqrt(sigmoid(cls) * sigmoid(iou)), class-aware NMS (kernel C) and top-k."""
+sqrt(sigmoid(cls) * sigmoid(iou)), class-aware NMS (the NMS kernel) and top-k."""
 from __future__ import annotations
 
 from typing import Dict

@@ -35,14 +35,14 @@ _COMMON_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # per library: extra nvcc flags. NMS compares IoU near its threshold, so its
 # arithmetic must round op by op as the CPU does: no fused multiply-adds.
-# The tensor-core routes of kernels A and A-bwd report their registers and
-# spills.
+# The tensor-core routes of kernels A and A-bwd, and MSDA with MSDA-bwd,
+# report their registers and spills.
 KERNELS: Dict[str, Tuple[str, ...]] = {
     "rel_pos_flash_attn_mma": ("-Xptxas", "-v"),
     "rel_pos_flash_attn": (),
     "rel_pos_flash_attn_bwd_mma": ("-Xptxas", "-v"),
     "rel_pos_flash_attn_bwd": (),
-    "ms_deform_attn": (),
+    "ms_deform_attn": ("-Xptxas", "-v"),
     "nms": ("-fmad=false",),
     "gather_fold": (),
     "dma_gather": (),

@@ -1,5 +1,5 @@
-"""Multi-scale deformable attention (kernel B and its backward B-bwd, both
-in `csrc/ms_deform_attn.cu`).
+"""Multi-scale deformable attention: MSDA and its backward MSDA-bwd, both
+in `csrc/ms_deform_attn.cu`.
 
 Semantics of `uninext_tpu/ops/msda.py:ms_deform_attn`: for every (query,
 head, level, point), bilinearly sample the level's value map at a location
@@ -11,10 +11,15 @@ Layouts (as in the JAX package):
   sampling_locations: (B, Lq, M, L, P, 2)  (x, y), fp32
   attention_weights:  (B, Lq, M, L, P)     fp32
   returns:            (B, Lq, M * D)       value dtype
+
+The kernels read a value row in 16-byte pieces, so on the card D must be a
+multiple of 8 up to 256 in bf16, or of 4 up to 128 in fp32; any other D
+raises `ValueError` before a launch.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -50,12 +55,20 @@ def ms_deform_attn_plain(value: torch.Tensor,
 
 
 def _levels_table(spatial_shapes, S: int, L: int) -> torch.Tensor:
-    """Host int32 (L, 3) table of (H_l, W_l, start_l), passed by value."""
-    if L != len(spatial_shapes) or S != sum(h * w for h, w in spatial_shapes):
+    """Host int32 (L, 3) table of (H_l, W_l, start_l), which the C entry
+    points copy into the launch parameters. Made once per level shapes: the
+    table is never written, and serving and training repeat a few shapes."""
+    shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+    if L != len(shapes) or S != sum(h * w for h, w in shapes):
         raise ValueError(f"ms_deform_attn: spatial shapes {spatial_shapes} do not "
                          f"match value length {S} and {L} levels")
+    return _levels_of(shapes)
+
+
+@functools.lru_cache(maxsize=64)
+def _levels_of(shapes: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
     rows, start = [], 0
-    for h, w in spatial_shapes:
+    for h, w in shapes:
         rows.append((h, w, start))
         start += h * w
     return torch.tensor(rows, dtype=torch.int32)
@@ -74,30 +87,42 @@ def _check_inputs(value, sampling_locations, attention_weights):
             raise ValueError(f"ms_deform_attn: {name} shape {tuple(t.shape)} != {shape}")
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"ms_deform_attn: {name} must be contiguous on {dev}")
-    if not value.is_contiguous():
-        raise ValueError("ms_deform_attn: value must be contiguous")
+    if not value.is_contiguous() or value.data_ptr() % 16:
+        raise ValueError("ms_deform_attn: value must be contiguous and 16-byte aligned")
+    # the kernels read a row in 16-byte pieces, one lane each, at most 32
+    per_piece = 8 if value.dtype == torch.bfloat16 else 4
+    if D % per_piece or not 0 < D <= 32 * per_piece:
+        raise ValueError(f"ms_deform_attn: head width D={D} in {value.dtype} must be a "
+                         f"multiple of {per_piece} up to {32 * per_piece}")
+
+
+@functools.cache
+def _entry(name: str):
+    """The C entry point `name` of the MSDA library, with its signature."""
+    fn = getattr(_build.library("ms_deform_attn"), name)
+    n_ptr = {"ms_deform_attn_fwd": 5, "ms_deform_attn_bwd": 8}[name]
+    fn.argtypes = [_build.P] * n_ptr + [_build.I] * 8 + [_build.P]
+    fn.restype = _build.I
+    return fn
 
 
 def ms_deform_attn_kernel(value: torch.Tensor,
                           spatial_shapes: Sequence[Tuple[int, int]],
                           sampling_locations: torch.Tensor,
                           attention_weights: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B on CUDA tensors (no autograd)."""
+    """Launch MSDA on CUDA tensors (no autograd)."""
     _check_inputs(value, sampling_locations, attention_weights)
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     dtype = _build.dtype_code(value)
     levels = _levels_table(spatial_shapes, S, L)
     out = torch.empty((B, Lq, M * D), dtype=value.dtype, device=value.device)
-    lib = _build.library("ms_deform_attn")
-    fn = lib.ms_deform_attn_fwd
-    fn.argtypes = [_build.P] * 5 + [_build.I] * 8 + [_build.P]
-    fn.restype = _build.I
-    rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), out.data_ptr(),
-            ctypes.c_void_p(levels.data_ptr()), B, S, Lq, M, D, L, P,
-            dtype, _build.stream_of(value))
-    _build.check(lib, rc, "ms_deform_attn_fwd")
+    rc = _entry("ms_deform_attn_fwd")(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), out.data_ptr(),
+        ctypes.c_void_p(levels.data_ptr()), B, S, Lq, M, D, L, P, dtype,
+        _build.stream_of(value))
+    _build.check(_build.library("ms_deform_attn"), rc, "ms_deform_attn_fwd")
     ms_deform_attn.launches += 1
     if recomputing():
         ms_deform_attn.recompute_launches += 1
@@ -108,36 +133,34 @@ def ms_deform_attn_bwd(value: torch.Tensor,
                        spatial_shapes: Sequence[Tuple[int, int]],
                        sampling_locations: torch.Tensor,
                        attention_weights: torch.Tensor, dout: torch.Tensor):
-    """Launch kernel B-bwd on CUDA tensors. Returns (dvalue in the value
-    dtype, dloc fp32, datt fp32). dvalue is summed with fp32 atomics, so its
-    last bits vary from run to run."""
+    """Launch MSDA-bwd on CUDA tensors. Returns (dvalue in the value dtype,
+    dloc fp32, datt fp32). dvalue is summed with fp32 vector reductions, so
+    its last bits vary from run to run."""
     _check_inputs(value, sampling_locations, attention_weights)
     B, S, M, D = value.shape
     _, Lq, _, L, P, _ = sampling_locations.shape
     dtype = _build.dtype_code(value)
     levels = _levels_table(spatial_shapes, S, L)
     dout = dout.to(value.dtype).contiguous()
-    if tuple(dout.shape) != (B, Lq, M * D):
-        raise ValueError(f"ms_deform_attn_bwd: dout shape {tuple(dout.shape)}")
+    if tuple(dout.shape) != (B, Lq, M * D) or dout.data_ptr() % 16:
+        raise ValueError(f"ms_deform_attn_bwd: dout shape {tuple(dout.shape)} != "
+                         f"{(B, Lq, M * D)} or not 16-byte aligned")
     dev = value.device
     dvalue = torch.zeros((B, S, M, D), dtype=torch.float32, device=dev)
     dloc = torch.empty((B, Lq, M, L, P, 2), dtype=torch.float32, device=dev)
     datt = torch.empty((B, Lq, M, L, P), dtype=torch.float32, device=dev)
-    lib = _build.library("ms_deform_attn")
-    fn = lib.ms_deform_attn_bwd
-    fn.argtypes = [_build.P] * 8 + [_build.I] * 8 + [_build.P]
-    fn.restype = _build.I
-    rc = fn(value.data_ptr(), sampling_locations.data_ptr(),
-            attention_weights.data_ptr(), dout.data_ptr(), dvalue.data_ptr(),
-            dloc.data_ptr(), datt.data_ptr(), ctypes.c_void_p(levels.data_ptr()),
-            B, S, Lq, M, D, L, P, dtype, _build.stream_of(value))
-    _build.check(lib, rc, "ms_deform_attn_bwd")
+    rc = _entry("ms_deform_attn_bwd")(
+        value.data_ptr(), sampling_locations.data_ptr(),
+        attention_weights.data_ptr(), dout.data_ptr(), dvalue.data_ptr(),
+        dloc.data_ptr(), datt.data_ptr(), ctypes.c_void_p(levels.data_ptr()),
+        B, S, Lq, M, D, L, P, dtype, _build.stream_of(value))
+    _build.check(_build.library("ms_deform_attn"), rc, "ms_deform_attn_bwd")
     ms_deform_attn_bwd.launches += 1
     return dvalue.to(value.dtype), dloc, datt
 
 
 class _MSDeformAttn(torch.autograd.Function):
-    """Kernel B forward, kernel B-bwd backward."""
+    """MSDA forward, MSDA-bwd backward."""
 
     @staticmethod
     def forward(ctx, value, spatial_shapes, sampling_locations, attention_weights):
@@ -158,10 +181,10 @@ def ms_deform_attn(value: torch.Tensor,
                    spatial_shapes: Sequence[Tuple[int, int]],
                    sampling_locations: torch.Tensor,
                    attention_weights: torch.Tensor) -> torch.Tensor:
-    """Kernel B on CUDA tensors (differentiable: its backward is kernel
-    B-bwd), the plain version (differentiable by autograd) on CPU tensors.
-    `launches` counts kernel B's launches; `recompute_launches` those of
-    them made while a checkpointed layer is recomputed for the backward."""
+    """MSDA on CUDA tensors (differentiable: its backward is MSDA-bwd), the
+    plain version (differentiable by autograd) on CPU tensors. `launches`
+    counts MSDA's launches; `recompute_launches` those of them made while a
+    checkpointed layer is recomputed for the backward."""
     dev = value.device
     if dev.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, sampling_locations,

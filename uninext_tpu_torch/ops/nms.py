@@ -1,4 +1,4 @@
-"""Class-aware greedy NMS (kernel C, `csrc/nms.cu`).
+"""Class-aware greedy NMS (the NMS kernel, `csrc/nms.cu`).
 
 Semantics of `uninext_tpu/ops/nms.py:batched_nms`, batched over images:
 boxes are visited in descending score order (stable: the lower index first

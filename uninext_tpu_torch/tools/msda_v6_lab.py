@@ -6,8 +6,8 @@ the gather output through its transposed view, and v6 lost to the per-level
 op (v4) on the TPU. Here the gather is one `index_select` and the fold is
 kernel B (`ops/gather_fold.py:msda_fold`), which reads the gathered rows as
 they come. `bench` times v6 against the port's MSDA kernel
-(`ops/msda.py:ms_deform_attn`, one warp per (query, head) sampling the
-value map directly) at the lab's encoder shape.
+(`ops/msda.py:ms_deform_attn`, lane groups of a warp sampling the value
+map directly) at the lab's encoder shape.
 
     python -m uninext_tpu_torch.tools.msda_v6_lab     # parity, then bench (card)
 
