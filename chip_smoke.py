@@ -16,7 +16,9 @@ nonzero):
      (CUDA events), the least time the card could take (bound) and, where
      one exists, one PyTorch library call's time. MSDA on two location
      sets (uniform, and shaped like the model's), also over CUDA graph
-     replays, with the L2 volume it moves;
+     replays, with the L2 volume it moves; NMS's keep mask equal to the
+     plain version's, its wrapper eagerly and over graph replays, and the
+     one kernel the profiler sees it launch;
   3. backward kernels: A-bwd and MSDA-bwd against autograd through the
      plain versions at the training shapes, fp32 and bf16 (A-bwd: bf16 on
      the tensor cores, fp32 on the CUDA cores), timed the same way; A-bwd's
@@ -28,7 +30,8 @@ nonzero):
      kernel B of `tools/msda_v6_lab.py`, and the gather probes C0-C2) and
      `csrc/dma_gather.cu` (the DMA probes C3, C4) against their plain
      versions at the tools' shapes, fp32 and bf16, timed over CUDA graph
-     replays; then the lab path with its launches counted:
+     replays, and an empty kernel's time over graph replays, the floor under
+     any launch; then the lab path with its launches counted:
      `tools/msda_v6_lab.py` (parity, and v6 against the port's MSDA kernel
      at the encoder shape in fp32 and bf16), the three probes of
      `tools/gather_probe.py` and the three of `tools/dma_probe.py`;
@@ -246,6 +249,7 @@ def phase_kernels():
     from uninext_tpu_torch.models import vit
     from uninext_tpu_torch.ops import msda, nms
     from uninext_tpu_torch.tools import event_ms
+    from uninext_tpu_torch.tools.kernel_times import device_kernels
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     # fp32: only the order of fp32 sums differs. bf16: both read the same
@@ -379,15 +383,21 @@ def phase_kernels():
         raise AssertionError("batched_nms: keep mask differs from the plain version")
     kept = int(got.sum())
     ms = _timed(lambda: nms.batched_nms(*args), 20)
+    gms = event_ms(lambda: nms.batched_nms(*args), 50)
     pms = _timed(lambda: nms.batched_nms_plain(*args), 2, warmup=1)
+    launched = device_kernels(lambda: nms.batched_nms(*args))
+    if len(launched) != 1 or "nms" not in launched[0][0]:
+        raise AssertionError(f"batched_nms: one kernel expected, the profiler saw {launched}")
     counts = torch.bincount(classes[0], minlength=4).double()
     pairs = float((counts * (counts - 1) / 2).sum())    # same-class pairs
     b_ms, b_by = _bound(N * (16 + 4 + 8 + 1), pairs * 12, "fp32")
-    print(f"[NMS] batched_nms N={N}: keep masks identical ({kept} kept), "
-          f"kernel {ms:.3f} ms, plain {pms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); "
-          f"no PyTorch call computes NMS (torchvision is absent)")
-    rec["nms"] = {"max_abs_err": 0.0, "ms": ms, "plain_ms": pms, "library_ms": None,
-                  "bound_ms": b_ms, "bound_by": b_by, "shape": f"N={N}"}
+    print(f"[NMS] batched_nms N={N}: keep masks identical ({kept} kept); wrapper "
+          f"{ms:.4f} ms eagerly, {gms:.4f} ms over graph replays; plain {pms:.3f} ms; "
+          f"bound {b_ms:.5f} ms ({b_by}); profiler: one kernel, {launched[0][0]} "
+          f"{launched[0][1]:.2f} us; no PyTorch call computes NMS (torchvision is absent)")
+    rec["nms"] = {"max_abs_err": 0.0, "ms": gms, "eager_ms": ms, "plain_ms": pms,
+                  "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+                  "shape": f"N={N}, 4 classes"}
     return rec
 
 
@@ -687,6 +697,9 @@ def phase_labs():
              shape=f"S={S_lp} N={N} D={D} bf16")
     print(f"[lab B] bound {b_ms:.4f} ms ({b_by}); library embedding_bag(sum, "
           f"per_sample_weights) in bf16: {lib:.4f} ms")
+    floor = event_ms(gf.launch_floor, 200)
+    print(f"[lab] launch floor: an empty kernel (1 warp) takes {floor:.5f} ms over "
+          f"CUDA graph replays, the least time of any launch")
     del rows32, w32, rows, w
     torch.cuda.empty_cache()
 
@@ -1275,7 +1288,7 @@ def main():
                         **{k: r[k] for k in ("max_rel_err", "kernel_ms", "window_ms",
                                              "window_kernel_ms", "window_plain_ms",
                                              "window_library_ms", "window_bound_ms",
-                                             "graph_ms", "model_ms", "model_graph_ms",
+                                             "graph_ms", "eager_ms", "model_ms", "model_graph_ms",
                                              "decoder_ms", "decoder_model_ms", "level0_graph_ms",
                                              "level3_graph_ms")
                            if k in r}})

@@ -198,8 +198,11 @@ def test_ms_deform_attn_refuses_other_head_widths(dev, dtype, D):
     assert [c.launches for c in counters] == before
 
 
-@pytest.mark.parametrize("B,N", [(2, 900), (3, 130), (1, 64)])
-def test_nms_matches_plain_exactly(dev, B, N):
+def _nms_case(dev, B, N):
+    """B images of N boxes in 3 classes around 25 centres, ties in score,
+    5% invalid entries, a pair of class 1 whose IoU is exactly 0.7f (inter
+    7/256 over union 10/256, both exact) and, at B = 3, one all-invalid
+    image."""
     rng = np.random.RandomState(N)
     centers = rng.uniform(0.2, 0.8, (B, 25, 2))
     pick = rng.randint(0, 25, (B, N))
@@ -207,16 +210,71 @@ def test_nms_matches_plain_exactly(dev, B, N):
     wh = rng.uniform(0.1, 0.2, (B, N, 2))
     boxes = np.concatenate([cxcy - wh / 2, cxcy + wh / 2], -1).astype(np.float32)
     scores = rng.rand(B, N).astype(np.float32)
-    scores[:, ::7] = scores[:, 1:2]                       # ties
+    scores[:, ::7] = scores[:, :1]                        # ties
     classes = rng.randint(0, 3, (B, N))
     valid = rng.rand(B, N) > 0.05
-    args = [torch.from_numpy(a).to(dev) for a in (boxes, scores, classes, valid)]
+    if N >= 26:
+        boxes[:, 24] = [0, 0, 10 / 16, 1 / 16]
+        boxes[:, 25] = [3 / 16, 0, 10 / 16, 1 / 16]
+        classes[:, 24:26] = 1
+        valid[:, 24:26] = True
+    if B == 3:
+        valid[2] = False
+    return [torch.from_numpy(a).to(dev) for a in (boxes, scores, classes, valid)]
+
+
+@pytest.mark.parametrize("B,N", [(2, 900), (3, 130), (1, 64), (1, 1), (1, 1024)])
+def test_nms_matches_plain_exactly(dev, B, N):
+    args = _nms_case(dev, B, N)
     before = nms.batched_nms.launches
     got = nms.batched_nms(args[0], args[1], args[2], 0.7, args[3])
     assert nms.batched_nms.launches == before + 1
     want = nms.batched_nms_plain(args[0], args[1], args[2], 0.7, args[3])
     assert torch.equal(got, want)
-    assert 0 < int(got.sum()) < int(args[3].sum())        # it did suppress
+    assert torch.equal(nms.batched_nms(*args[:3], 0.7), nms.batched_nms_plain(*args[:3], 0.7))
+    if N > 1:
+        assert 0 < int(got.sum()) < int(args[3].sum())    # it did suppress
+
+
+def test_nms_matches_plain_on_ties_and_classes_of_any_range(dev):
+    """Scores on a 0.1 grid with -0.0 and +0.0 (ties decided by index), and
+    class values spanning the int64 range (the kernel's 128-bit sort keys)
+    or a narrow one (its 64-bit keys)."""
+    boxes, scores, classes, valid = _nms_case(dev, 3, 300)
+    scores = (scores * 10).round() / 10
+    scores[:, ::5] = 0.0
+    scores[:, 1::5] = -0.0
+    for values in ([-5, 2**40, 2**63 - 1, 0], [7, 8, 9, 2**21]):
+        cls = torch.tensor(values, device=dev)[classes % 4]
+        got = nms.batched_nms(boxes, scores, cls, 0.5, valid)
+        assert torch.equal(got, nms.batched_nms_plain(boxes, scores, cls, 0.5, valid))
+
+
+def test_nms_refuses_more_than_1024_boxes(dev):
+    args = _nms_case(dev, 1, 1025)
+    before = nms.batched_nms.launches
+    with pytest.raises(ValueError, match="N <= 1024"):
+        nms.batched_nms(args[0], args[1], args[2], 0.7, args[3])
+    assert nms.batched_nms.launches == before
+
+
+def test_nms_replays_in_a_cuda_graph(dev):
+    """One call captured in a CUDA graph, replayed on new inputs copied into
+    the captured tensors."""
+    first, second = _nms_case(dev, 2, 900), _nms_case(dev, 3, 900)
+    static = [t[:2].clone() for t in first]
+    nms.batched_nms(static[0], static[1], static[2], 0.7, static[3])   # builds and loads
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keep = nms.batched_nms(static[0], static[1], static[2], 0.7, static[3])
+    for case in (first, second):
+        for dst, src in zip(static, case):
+            dst.copy_(src[:2])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(keep, nms.batched_nms_plain(static[0], static[1], static[2], 0.7,
+                                                       static[3]))
 
 
 def test_tiny_slice_on_card_matches_cpu(dev):
@@ -387,8 +445,11 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
 LAB_TOL = 5e-5
 
 
+# N: ragged against the block's 8 columns except 1000; D = 64 in fp32 takes
+# two 16-lane steps per row
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S,N,D", [(16, 1000, 32), (3, 77, 8), (5, 33, 40)])
+@pytest.mark.parametrize("S,N,D", [(16, 1000, 32), (3, 77, 8), (5, 33, 40), (16, 1001, 16),
+                                   (16, 163, 32), (7, 259, 64)])
 def test_msda_fold_matches_plain(dev, dtype, S, N, D):
     g = torch.Generator(device=dev).manual_seed(S * N + D)
     rows = torch.randn(S, N, 4 * D, device=dev, generator=g).to(dtype)
@@ -400,6 +461,24 @@ def test_msda_fold_matches_plain(dev, dtype, S, N, D):
     torch.cuda.synchronize()
     assert got.dtype == torch.float32 and got.shape == (N, D)
     torch.testing.assert_close(got, want, rtol=0, atol=LAB_TOL)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 12), (torch.bfloat16, 264),
+                                     (torch.float32, 6), (torch.float32, 132)])
+def test_msda_fold_refuses_other_widths_and_misaligned_views(dev, dtype, D):
+    rows = torch.randn(3, 5, 4 * D, device=dev).to(dtype)
+    w = torch.rand(3, 5, 4, device=dev).to(dtype)
+    before = gather_fold.msda_fold.launches
+    with pytest.raises(ValueError, match="multiple of"):
+        gather_fold.msda_fold(rows, w)
+    D = 32                                      # a width it takes, one element off 16 bytes
+    flat = torch.randn(3 * 5 * 4 * D + 1, device=dev).to(dtype)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_fold.msda_fold(flat[1:].view(3, 5, 4 * D), torch.rand(3, 5, 4, device=dev).to(dtype))
+    wflat = torch.rand(3 * 5 * 4 + 1, device=dev).to(dtype)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gather_fold.msda_fold(flat[:-1].view(3, 5, 4 * D), wflat[1:].view(3, 5, 4))
+    assert gather_fold.msda_fold.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -77,11 +77,14 @@ def _bf16_exact(a) -> torch.Tensor:
 
 # ---- B: the fold and msda_v6 -------------------------------------------------
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fold_plain_matches_jax_fold_pallas(jax_tools, interpret, monkeypatch, dtype):
+# D = 8 (ids as before) and the lab's D = 32
+@pytest.mark.parametrize("dtype,Dd", [("float32", 8), ("bfloat16", 8), ("float32", 32),
+                                      ("bfloat16", 32)],
+                         ids=["float32", "bfloat16", "float32-32", "bfloat16-32"])
+def test_fold_plain_matches_jax_fold_pallas(jax_tools, interpret, monkeypatch, dtype, Dd):
     lab = jax_tools["msda_v6_lab"]
     monkeypatch.setattr(lab, "FOLD_TN", 128)       # 2 column blocks
-    LP, BMLq, Dd = 3, 256, 8
+    LP, BMLq = 3, 256
     rng = np.random.RandomState(2)
     g = jnp.asarray(rng.randn(LP * BMLq, 4 * Dd), dtype)
     w = jnp.asarray(rng.rand(LP * BMLq, 4), dtype)

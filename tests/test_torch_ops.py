@@ -198,7 +198,8 @@ def test_multihead_attention_matches_jax_with_blocking_mask():
 def _nms_inputs(seed, N=120):
     """Random boxes in 3 classes, 10% invalid, plus pairs whose IoU sits a
     few ulps either side of 0.7 (a shift d of a unit box gives
-    IoU = (1-d)/(1+d))."""
+    IoU = (1-d)/(1+d)) and one pair whose IoU is 0.7f exactly (inter 7/256
+    over union 10/256, both exact)."""
     rng = np.random.RandomState(seed)
     cxcywh = np.concatenate([rng.uniform(0.2, 0.8, (N, 2)),
                              rng.uniform(0.05, 0.3, (N, 2))], 1)
@@ -210,17 +211,22 @@ def _nms_inputs(seed, N=120):
         base = np.float32(t * 0.05)
         boxes[2 * t] = [base, base, base + 1, base + 1]
         boxes[2 * t + 1] = [base + d, base, base + d + 1, base + 1]
+    boxes[24] = [0, 0, 10 / 16, 1 / 16]
+    boxes[25] = [3 / 16, 0, 10 / 16, 1 / 16]
     scores = rng.rand(N).astype(np.float32)
     scores[::17] = scores[1]                               # equal scores
     classes = rng.randint(0, 3, N).astype(np.int64)
-    classes[:24] = 1
+    classes[:26] = 1
     valid = rng.rand(N) > 0.1
+    valid[24:26] = True
     return boxes.astype(np.float32), scores, classes, valid
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_nms_plain_matches_jax_exactly(seed):
-    per_image = [_nms_inputs(seed * 10 + i) for i in range(2)]
+# N = 120 (ids 0-2, as before) and the model's N = 900 queries
+@pytest.mark.parametrize("seed,N", [(0, 120), (1, 120), (2, 120), (3, 900), (4, 900)],
+                         ids=["0", "1", "2", "3-900", "4-900"])
+def test_nms_plain_matches_jax_exactly(seed, N):
+    per_image = [_nms_inputs(seed * 10 + i, N) for i in range(2)]
     stack = [np.stack(x) for x in zip(*per_image)]
     boxes, scores, classes, valid = (torch.from_numpy(a) for a in stack)
     got = _np(nms.batched_nms_plain(boxes, scores, classes, 0.7, valid))

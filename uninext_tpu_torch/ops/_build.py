@@ -137,6 +137,16 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+@functools.cache
+def function(name: str, fn_name: str, argtypes: tuple):
+    """Entry point `fn_name` of library `name`, with its argument types set
+    (once per entry point) and an int return, the CUDA error code."""
+    fn = getattr(library(name), fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = I
+    return fn
+
+
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
     if rc != 0:
         msg = lib.uninext_cuda_error_string(rc).decode()

@@ -47,11 +47,8 @@ def _check_table(name: str, buf: torch.Tensor, idx: torch.Tensor) -> None:
 
 
 def _call(fn_name: str, argtypes, *args) -> None:
-    lib = _build.library("dma_gather")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = _build.I
-    _build.check(lib, fn(*args), fn_name)
+    fn = _build.function("dma_gather", fn_name, tuple(argtypes))
+    _build.check(_build.library("dma_gather"), fn(*args), fn_name)
 
 
 def dma_gather_rowsum(buf: torch.Tensor, idx: torch.Tensor, k: int = 32,

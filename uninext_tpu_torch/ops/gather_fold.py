@@ -50,11 +50,8 @@ _TABLE = (torch.float32, torch.bfloat16)
 
 
 def _call(fn_name: str, argtypes, *args) -> None:
-    lib = _build.library("gather_fold")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = argtypes
-    fn.restype = _build.I
-    _build.check(lib, fn(*args), fn_name)
+    fn = _build.function("gather_fold", fn_name, tuple(argtypes))
+    _build.check(_build.library("gather_fold"), fn(*args), fn_name)
 
 
 # ---- B ---------------------------------------------------------------------
@@ -68,7 +65,9 @@ def msda_fold_plain(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def msda_fold(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Kernel B on CUDA tensors, the plain version on CPU tensors.
     g: (S, N, 4D) gathered rows, w: (S, N, 4) in g's dtype; returns (N, D)
-    fp32."""
+    fp32. The kernel reads 16-byte vectors: D must be a multiple of 8 up
+    to 256 in bf16, or of 4 up to 128 in fp32, and g and w 16-byte aligned
+    (ValueError before the launch otherwise)."""
     if not _dispatch("msda_fold", g, w):
         return msda_fold_plain(g, w)
     if g.dim() != 3 or g.shape[2] % 4:
@@ -76,6 +75,12 @@ def msda_fold(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     S, N, D4 = g.shape
     _check("msda_fold g", g, None, _TABLE)
     _check("msda_fold w", w, (S, N, 4), (g.dtype,))
+    vec = 16 // g.element_size()
+    if (D4 // 4) % vec or D4 // 4 > 32 * vec:
+        raise ValueError(f"msda_fold: D must be a multiple of {vec} up to {32 * vec} "
+                         f"in {g.dtype}, got {D4 // 4}")
+    if g.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("msda_fold: g and w must be 16-byte aligned")
     out = torch.empty((N, D4 // 4), dtype=torch.float32, device=g.device)
     _call("msda_fold", [_build.P] * 3 + [_build.I, _build.LL, _build.I, _build.I, _build.P],
           g.data_ptr(), w.data_ptr(), out.data_ptr(), S, N, D4 // 4,
@@ -157,6 +162,12 @@ def gather_weighted(buf: torch.Tensor, idx: torch.Tensor,
           SAMP, D, _build.dtype_code(buf), _build.stream_of(buf))
     gather_weighted.launches += 1
     return out
+
+
+def launch_floor() -> None:
+    """One launch of an empty kernel on the current stream: its time over
+    CUDA graph replays is the floor under any kernel's."""
+    _call("launch_floor", [_build.P], torch.cuda.current_stream().cuda_stream)
 
 
 msda_fold.launches = 0

@@ -96,14 +96,11 @@ def _check_inputs(value, sampling_locations, attention_weights):
                          f"multiple of {per_piece} up to {32 * per_piece}")
 
 
-@functools.cache
 def _entry(name: str):
     """The C entry point `name` of the MSDA library, with its signature."""
-    fn = getattr(_build.library("ms_deform_attn"), name)
     n_ptr = {"ms_deform_attn_fwd": 5, "ms_deform_attn_bwd": 8}[name]
-    fn.argtypes = [_build.P] * n_ptr + [_build.I] * 8 + [_build.P]
-    fn.restype = _build.I
-    return fn
+    return _build.function("ms_deform_attn", name,
+                           (_build.P,) * n_ptr + (_build.I,) * 8 + (_build.P,))
 
 
 def ms_deform_attn_kernel(value: torch.Tensor,

@@ -46,46 +46,49 @@ def batched_nms_plain(boxes: torch.Tensor, scores: torch.Tensor,
     return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
 
 
+_MAX_N = 1024        # the kernel's block holds one thread per box
+
+
 def batched_nms(boxes: torch.Tensor, scores: torch.Tensor,
                 classes: torch.Tensor, iou_threshold: float,
                 valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel C on CUDA tensors, the plain version on CPU tensors."""
+    """Kernel C on CUDA tensors, the plain version on CPU tensors.
+
+    The kernel takes contiguous boxes (B, N, 4) and scores (B, N) in
+    float32, classes (B, N) int64 and valid (B, N) bool or None, with
+    N <= 1024, and raises ValueError before any launch otherwise. Scores
+    must be finite: the kernel orders valid boxes by score as
+    `torch.argsort(-score, stable=True)` does only then. One call is one
+    launch (no sort, gather or copy around it) and makes no host sync, so
+    it can be captured in a CUDA graph."""
     dev = boxes.device
     if dev.type == "cpu":
         return batched_nms_plain(boxes, scores, classes, iou_threshold, valid)
     if dev.type != "cuda":
         raise ValueError(f"batched_nms: unsupported device {dev}")
     B, N = scores.shape
-    if valid is None:
-        valid = torch.ones((B, N), dtype=torch.bool, device=dev)
-    if tuple(boxes.shape) != (B, N, 4) or boxes.dtype != torch.float32:
-        raise ValueError(f"batched_nms: boxes must be float32 (B, N, 4), got "
-                         f"{boxes.dtype} {tuple(boxes.shape)}")
-    if tuple(classes.shape) != (B, N) or classes.dtype != torch.int64:
-        raise ValueError("batched_nms: classes must be int64 (B, N)")
-    if tuple(valid.shape) != (B, N) or valid.dtype != torch.bool:
-        raise ValueError("batched_nms: valid must be bool (B, N)")
-    if any(t.device != dev for t in (scores, classes, valid)):
-        raise ValueError("batched_nms: inputs on different devices")
-    if N == 0:
-        return torch.zeros((B, 0), dtype=torch.bool, device=dev)
-    order, b, c, v = _sorted_inputs(boxes, scores, classes, valid)
-    b, c, v, order = (t.contiguous() for t in (b, c, v, order))
-    nw = -(-N // 64)
-    mask = torch.empty((B, N, nw), dtype=torch.int64, device=dev)
+    for name, t, shape, dtype in (("boxes", boxes, (B, N, 4), torch.float32),
+                                  ("scores", scores, (B, N), torch.float32),
+                                  ("classes", classes, (B, N), torch.int64),
+                                  ("valid", valid, (B, N), torch.bool)):
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"batched_nms: {name} must be contiguous {dtype} {shape}, "
+                             f"got {t.dtype} {tuple(t.shape)}")
+        if t.device != dev:
+            raise ValueError("batched_nms: inputs on different devices")
+    if N > _MAX_N:
+        raise ValueError(f"batched_nms: the kernel takes N <= {_MAX_N} boxes, got {N}")
     keep = torch.empty((B, N), dtype=torch.bool, device=dev)
-    lib = _build.library("nms")
-    stream = _build.stream_of(boxes)
-    lib.nms_bitmask.argtypes = [_build.P] * 4 + [_build.I, _build.I, _build.F, _build.P]
-    lib.nms_bitmask.restype = _build.I
-    rc = lib.nms_bitmask(b.data_ptr(), c.data_ptr(), v.data_ptr(),
-                         mask.data_ptr(), B, N, float(iou_threshold), stream)
-    _build.check(lib, rc, "nms_bitmask")
-    lib.nms_sweep.argtypes = [_build.P] * 4 + [_build.I, _build.I, _build.P]
-    lib.nms_sweep.restype = _build.I
-    rc = lib.nms_sweep(mask.data_ptr(), v.data_ptr(), order.data_ptr(),
-                       keep.data_ptr(), B, N, stream)
-    _build.check(lib, rc, "nms_sweep")
+    if B == 0 or N == 0:
+        return keep
+    fn = _build.function("nms", "nms_fused",
+                         (_build.P,) * 5 + (_build.I, _build.I, _build.F, _build.P))
+    rc = fn(boxes.data_ptr(), scores.data_ptr(), classes.data_ptr(),
+                   None if valid is None else valid.data_ptr(), keep.data_ptr(),
+                   B, N, float(iou_threshold), _build.stream_of(boxes))
+    _build.check(_build.library("nms"), rc, "nms_fused")
     batched_nms.launches += 1
     return keep
 

@@ -6,6 +6,9 @@ Each runs on the card by default:
     python -m uninext_tpu_torch.tools.msda_v6_lab
     python -m uninext_tpu_torch.tools.gather_probe
     python -m uninext_tpu_torch.tools.dma_probe
+
+and `kernel_times`, which times the NMS kernel and fold B (see its
+docstring).
 """
 import torch
 
