@@ -1,7 +1,8 @@
 """The port's CUDA kernels (A on both routes, A-bwd, MSDA, MSDA-bwd, NMS,
 and the labs' fold, gather and DMA-probe kernels) vs their plain PyTorch
 versions, on the card. A backward kernel is held to autograd through the
-plain version of its forward.
+plain version of its forward. The tiny ViT and R50 slices run on the card
+against the CPU, serving and one train step.
 
 CUDA kernels have no CPU or interpret mode, so every test here is marked
 `cuda` and skips without a CUDA device (decided inside the `dev` fixture,
@@ -436,6 +437,107 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
         got = gg[n].cpu() if gg[n] is not None else torch.zeros(1)
         # floor 1e-2: leaves whose exact gradient is 0 (the key bias of a
         # softmax attention) hold only rounding noise
+        _close_rel(n, got, want, torch.float32, floor=1e-2)
+
+
+def _tiny_r50_models(dev, seed):
+    """`tiny_test_config` (R50 at full width) with the same weights on the
+    CPU and on the card, perturbed by 0.01 off the initial sampling-offset
+    ring (where a gradient w.r.t. a location depends on rounding)."""
+    from uninext_tpu_torch.config import tiny_test_config
+    from uninext_tpu_torch.models.detr import build_model
+
+    cfg = tiny_test_config()
+    cpu = build_model(cfg, "cpu", seed=seed)
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(seed + 1)
+        for p in cpu.parameters():
+            p.add_(0.01 * torch.randn(p.shape, generator=g))
+    gpu = build_model(cfg, "cpu", seed=seed).to(dev)
+    gpu.load_state_dict(cpu.state_dict())
+    return cfg, cpu, gpu
+
+
+def test_tiny_r50_serving_on_card_matches_cpu(dev):
+    """The R50 slice's three serving paths, fp32, the same weights: the
+    card (cuDNN, MSDA and NMS kernels) vs the CPU (plain versions):
+    detection with `postprocess_detection`, the instance masks of its top
+    100 and the REC/RES top-1 box and mask, with the launches of each."""
+    from torch_port_common import detection_inputs
+    from uninext_tpu_torch.models.postprocess import postprocess_instseg, postprocess_rec
+
+    cfg, cpu, gpu = _tiny_r50_models(dev, 8)
+    inputs = [torch.from_numpy(a) for a in detection_inputs(4)]
+    sizes = inputs[2]
+    cmap = torch.eye(16, dtype=torch.bool)[1:6]
+    counters = (vit.flash_rel_pos_attention, msda.ms_deform_attn, nms.batched_nms)
+    t = cfg.transformer
+    res = {}
+    for name, model, device in (("cpu", cpu, "cpu"), ("card", gpu, dev)):
+        args = [a.to(device) for a in inputs]
+        before = [c.launches for c in counters]
+        with torch.inference_mode():
+            det = model(*args)
+            inst = postprocess_instseg(model, det, cmap.to(device), sizes.to(device))
+            mid = [c.launches for c in counters]
+            grd = model(*args, task="grounding")
+            rec = postprocess_rec(model, grd, sizes.to(device))
+        if name == "card":
+            assert [m - b for m, b in zip(mid, before)] == [0, t.enc_layers + t.dec_layers, 1]
+            assert [c.launches - m for c, m in zip(counters, mid)] == [
+                0, t.enc_layers + t.dec_layers, 0]
+        res[name] = {**{f"det_{k}": det[k] for k in ("pred_logits", "pred_boxes")},
+                     "inst_masks": inst["mask_logits"], "query_idx": inst["query_idx"],
+                     "grd_logits": grd["pred_logits"], "rec_box": rec["box"],
+                     "rec_mask": rec["mask_logits"], "rec_idx": rec["query_idx"]}
+    for key in ("query_idx", "rec_idx"):
+        assert torch.equal(res["card"][key].cpu(), res["cpu"][key]), key
+    for key, want in res["cpu"].items():
+        if key not in ("query_idx", "rec_idx"):
+            got = res["card"][key].cpu()
+            assert got.shape == want.shape and torch.isfinite(got).all(), key
+            # fp32 through 53 convolutions (cuDNN and oneDNN sum in other orders)
+            _close_rel(key, got, want, torch.float32)
+
+
+def test_tiny_r50_train_step_on_card_matches_cpu(dev):
+    """One R50 train step's losses and gradients, fp32, the same weights,
+    batch and DN noise: MSDA, MSDA-bwd and cuDNN on the card vs the plain
+    versions on the CPU; the frozen parameters have gradients on both."""
+    from torch_port_common import detection_inputs, detection_targets
+    from uninext_tpu_torch.engine.train import loss_and_grads, loss_weights
+
+    cfg, cpu, gpu = _tiny_r50_models(dev, 9)
+    images, img_mask, sizes, ids, tmask = (torch.from_numpy(a) for a in detection_inputs(5))
+    boxes, valid, pm = (torch.from_numpy(a) for a in
+                        detection_targets(5, G=cfg.data.max_insts))
+    batch = {"images": images, "img_mask": img_mask, "image_sizes": sizes,
+             "text_ids": ids.long(), "text_mask": tmask,
+             "targets": {"boxes": boxes, "valid": valid, "positive_map": pm}}
+    gen = torch.Generator().manual_seed(1)
+    shape = (2, 5, 2, 20, 4)
+    noise = (torch.randint(0, 2, shape, generator=gen).float() * 2 - 1,
+             torch.rand(shape, generator=gen))
+    results = []
+    for model, device in ((cpu, "cpu"), (gpu, dev)):
+        model.train()
+        mv = lambda x: {k: mv(v) for k, v in x.items()} if isinstance(x, dict) \
+            else x.to(device)
+        before = msda.ms_deform_attn_bwd.launches
+        _, losses = loss_and_grads(model, mv(batch), loss_weights(cfg),
+                                   dn_noise=tuple(t.to(device) for t in noise))
+        if device != "cpu":
+            t = cfg.transformer
+            assert msda.ms_deform_attn_bwd.launches - before == t.enc_layers + t.dec_layers
+        results.append((losses, {n: p.grad for n, p in model.named_parameters()}))
+    (cl, cg), (gl, gg) = results
+    assert set(cl) == set(gl)
+    for k in cl:
+        torch.testing.assert_close(gl[k].cpu(), cl[k], rtol=1e-4, atol=1e-5)
+    assert cg["detr.detr.backbone.0.backbone.stem.conv1.norm.running_var"] is not None
+    for n in cg:
+        want = cg[n] if cg[n] is not None else torch.zeros(1)
+        got = gg[n].cpu() if gg[n] is not None else torch.zeros(1)
         _close_rel(n, got, want, torch.float32, floor=1e-2)
 
 

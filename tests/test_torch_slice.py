@@ -95,10 +95,11 @@ def test_bridge_round_trip_through_convert_checkpoint(pair):
 
 
 def test_port_runs_without_jax():
-    """Importing the port, serving a request, taking a train step and
-    running the three labs (`tools/`) at a tiny size leave jax, flax and the
-    JAX package (`uninext_tpu`, `uninext_tpu.*`) out of sys.modules: the
-    H100 machine runs the port without them."""
+    """Importing the port, serving a request and taking a train step with
+    the ViT and the R50 backbones (with R50 also the instance masks and
+    REC/RES), and running the three labs (`tools/`) at a tiny size leave
+    jax, flax and the JAX package (`uninext_tpu`, `uninext_tpu.*`) out of
+    sys.modules: the H100 machine runs the port without them."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -139,6 +140,25 @@ def test_port_runs_without_jax():
         pmap = torch.zeros(2, G, 16, dtype=torch.bool)
         pmap[:, 0] = torch.from_numpy(cmap[0])
         targets = {"boxes": boxes, "valid": valid, "positive_map": pmap}
+        metrics = train_step(state, {"images": images, "img_mask": img_mask,
+                                     "image_sizes": sizes,
+                                     "text_ids": torch.from_numpy(p_ids).long()[None].expand(2, 16),
+                                     "text_mask": torch.from_numpy(p_mask)[None].expand(2, 16),
+                                     "targets": targets})
+        assert torch.isfinite(metrics["total_loss"])
+        # the R50 paths: detection, instance masks, REC/RES and a train step
+        from uninext_tpu_torch.models.postprocess import postprocess_instseg, postprocess_rec
+        r50 = tiny_test_config()
+        model = build_model(r50, "cpu", seed=4)
+        with torch.inference_mode():
+            out = model(images, img_mask, sizes, ids, tmask)
+            inst = postprocess_instseg(model, out, torch.eye(16, dtype=torch.bool)[:5], sizes)
+            rec = postprocess_rec(model, model(images, img_mask, sizes, ids, tmask,
+                                               task="grounding"), sizes)
+        assert inst["mask_logits"].shape == (2, 100, 16, 24)
+        assert rec["mask_logits"].shape == (2, 1, 16, 24) and rec["box"].shape == (2, 4)
+        assert torch.isfinite(inst["mask_logits"]).all() and torch.isfinite(rec["box"]).all()
+        state = build_train_state(r50, "cpu", seed=4)
         metrics = train_step(state, {"images": images, "img_mask": img_mask,
                                      "image_sizes": sizes,
                                      "text_ids": torch.from_numpy(p_ids).long()[None].expand(2, 16),

@@ -21,8 +21,9 @@ import pytest
 import torch
 
 import uninext_tpu.models.detr as jdetr
-from tests.torch_port_common import (detection_inputs, detection_targets,
-                                     jax_train_init, perturb, tiny_vit_config)
+from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
+                                     dn_noise, jax_loss_and_grads, jax_train_init,
+                                     perturb, tiny_vit_config)
 from uninext_tpu.config import LossConfig as JLossConfig
 from uninext_tpu.config import SolverConfig as JSolverConfig
 from uninext_tpu.engine import optimizer as joptim
@@ -57,16 +58,6 @@ def test_dn_attn_mask_matches_jax(Q, single_pad, groups):
         jdetr.build_dn_attn_mask(Q, single_pad, groups))
 
 
-def _dn_noise(key, B, single_pad, groups=5):
-    """(sign, part) as `uninext_tpu/models/detr.py:prepare_dn_static` draws
-    them from `key`."""
-    shape = (B, groups, 2, single_pad, 4)
-    k_sign, k_part = jax.random.split(key)
-    sign = jax.random.rademacher(k_sign, shape, dtype=jnp.float32)
-    part = jax.random.uniform(k_part, shape)
-    return _t(np.asarray(sign)), _t(np.asarray(part))
-
-
 def test_prepare_dn_static_matches_jax():
     boxes, valid, _ = detection_targets(4, B=2, G=20)
     label_enc = np.random.RandomState(5).randn(2, 16).astype(np.float32)
@@ -74,7 +65,7 @@ def test_prepare_dn_static_matches_jax():
     want = jax.jit(lambda b, v, l, k: jdetr.prepare_dn_static(b, v, l, k, 1.0, single_pad=20))(
         boxes, valid, label_enc, key)
     got = detr.prepare_dn_static(_t(boxes), _t(valid), _t(label_enc), 1.0,
-                                 noise=_dn_noise(key, 2, 20), single_pad=20)
+                                 noise=dn_noise(key, 2, 20), single_pad=20)
     # the same fp32 box arithmetic op for op; inverse_sigmoid's log: 1 ulp
     np.testing.assert_array_equal(_np(got[0]), np.asarray(want[0]))
     np.testing.assert_allclose(_np(got[1]), np.asarray(want[1]), atol=2e-6)
@@ -195,34 +186,11 @@ def pair():
     return cfg, jm, params, model, inputs, targets
 
 
-def _bridge_sources(params):
-    """{port key: the JAX leaf paths the bridge builds it from}, recorded
-    by running `convert.fill_model` over the tree."""
-    lv = convert._Leaves(params)
-    taken, sources = [], {}
-    take = lv.take
-
-    def recording_take(path):
-        taken.append(path)
-        return take(path)
-
-    lv.take = recording_take
-
-    class Recorder(dict):
-        def __setitem__(self, key, value):
-            sources[key] = list(taken)
-            taken.clear()
-            super().__setitem__(key, value)
-
-    convert.fill_model(Recorder(), "", lv, "")
-    return sources
-
-
 def test_optimizer_groups_match_classify_param(pair):
     """Every port parameter's group equals `classify_param` of each JAX leaf
     the bridge builds it from, and every JAX leaf is reached."""
     cfg, jm, params, model, _, _ = pair
-    sources = _bridge_sources(params)
+    sources = bridge_sources(params)
     opt = optim.AdamW(model.named_parameters(), cfg.solver)
     groups = {n: g for g, names in opt.names.items() for n in names}
     assert set(groups) == set(sources)
@@ -292,36 +260,13 @@ def test_optimizer_matches_optax_for_three_steps():
 DN_KEY = jax.random.PRNGKey(123)
 
 
-def _jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch):
-    """jax.value_and_grad of the weighted total of `model.apply(...,
-    train=True)`, with the DN key pinned to DN_KEY."""
-    real = jdetr.prepare_dn_static
-
-    def pinned(gt_boxes, gt_valid, label_enc, rng, box_noise_scale, **kw):
-        return real(gt_boxes, gt_valid, label_enc, DN_KEY, box_noise_scale, **kw)
-
-    monkeypatch.setattr(jdetr, "prepare_dn_static", pinned)
-    boxes, valid, pm = targets
-    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm, "has_masks": False}
-    weights = jloss_weights(cfg)
-
-    def loss_fn(p):
-        losses = jm.apply({"params": p}, *inputs, targets=tgt, train=True,
-                          rngs={"dn": jax.random.PRNGKey(0)})
-        return jweighted_total(losses, weights), losses
-
-    (total, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        params["params"])
-    return total, losses, grads
-
-
 def test_train_step_matches_jax(pair, monkeypatch):
     """One step of the small ViT config: every loss key and every gradient
     leaf against `jax.value_and_grad`. The port's gradients, as a state dict,
     go into the JAX tree through `convert_checkpoint`."""
     cfg, jm, params, model, inputs, targets = pair
-    total, jlosses, jgrads = _jax_loss_and_grads(jm, params, inputs, targets, jm.cfg,
-                                                 monkeypatch)
+    total, jlosses, jgrads = jax_loss_and_grads(jm, params, inputs, targets, jm.cfg,
+                                                monkeypatch, DN_KEY)
     single_pad = min(detr.DN_SINGLE_PAD, cfg.data.max_insts)
     batch = {"images": _t(inputs[0]), "img_mask": _t(inputs[1]),
              "image_sizes": _t(inputs[2]), "text_ids": _t(inputs[3]).long(),
@@ -329,7 +274,7 @@ def test_train_step_matches_jax(pair, monkeypatch):
              "targets": {"boxes": _t(targets[0]), "valid": _t(targets[1]),
                          "positive_map": _t(targets[2])}}
     got_total, losses = loss_and_grads(model, batch, loss_weights(cfg),
-                                       dn_noise=_dn_noise(DN_KEY, 2, single_pad))
+                                       dn_noise=dn_noise(DN_KEY, 2, single_pad))
     assert set(losses) == set(jlosses)
     for k in losses:
         # fp32 through backbone, BERT, 2 + 2 transformer layers, matching

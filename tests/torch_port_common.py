@@ -79,14 +79,17 @@ def perturb(params, seed=1, scale=0.05):
     """Add seeded noise to every leaf, so zero- and constant-initialised
     parameters (biases, rel-pos tables, offsets) carry information through
     the comparison. `up_res3/bias` stays four equal copies, the only form a
-    ConvTranspose2d bias can take."""
+    ConvTranspose2d bias can take. The mask head's leaves (`controller`,
+    `mask_head`) draw from a stream of their own, so the other leaves get
+    the same noise whether or not the tree holds a mask head."""
     import jax      # imported here: the CUDA tests use this module without JAX
 
-    rng = np.random.RandomState(seed)
+    main, heads = np.random.RandomState(seed), np.random.RandomState(seed + 1000)
 
     def one(path, x):
         x = np.asarray(x, np.float32)
         name = "/".join(str(getattr(k, "key", k)) for k in path)
+        rng = heads if name.startswith(("params/controller", "params/mask_head")) else main
         if name.endswith("up_res3/bias"):
             return np.tile(rng.randn(x.shape[0] // 4).astype(np.float32) * scale, 4)
         return x + rng.randn(*x.shape).astype(np.float32) * scale
@@ -116,14 +119,86 @@ def detection_targets(seed=0, B=2, G=20, T=16, n=(3, 8)):
 
 def jax_train_init(jax_model, inputs, targets, seed=0):
     """Parameters of the JAX model initialised through its training path
-    (so the DN label encoder `dn_resizer` exists), as a tree of numpy
+    with mask targets (zeros), so the DN label encoder `dn_resizer` and the
+    mask head (`controller`, `mask_head`) exist, as a tree of numpy
     arrays."""
     import jax
 
     boxes, valid, pm = targets
-    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm, "has_masks": False}
+    B, H, W = inputs[0].shape[:3]
+    masks = np.zeros((B, valid.shape[1], H // 4, W // 4), np.float32)
+    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm, "masks": masks,
+           "has_masks": True}
     key = jax.random.PRNGKey(seed)
     params = jax.jit(lambda r: jax_model.init(
         {"params": r, "dn": jax.random.fold_in(r, 1)}, *inputs,
         targets=tgt, train=True))(key)
     return jax.tree.map(np.asarray, params)
+
+
+def dn_noise(key, B, single_pad, groups=5):
+    """(sign, part) as torch tensors, drawn from the JAX key `key` as
+    `uninext_tpu/models/detr.py:prepare_dn_static` draws them."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    shape = (B, groups, 2, single_pad, 4)
+    k_sign, k_part = jax.random.split(key)
+    sign = jax.random.rademacher(k_sign, shape, dtype=jnp.float32)
+    part = jax.random.uniform(k_part, shape)
+    return torch.from_numpy(np.array(sign)), torch.from_numpy(np.array(part))
+
+
+def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key):
+    """jax.value_and_grad of the weighted total of `model.apply(...,
+    train=True)` (detection, no mask losses), with the DN key pinned to
+    `dn_key`. Returns (total, losses, grads of params["params"])."""
+    import jax
+
+    import uninext_tpu.models.detr as jdetr
+    from uninext_tpu.engine.train import loss_weights, weighted_total
+
+    real = jdetr.prepare_dn_static
+
+    def pinned(gt_boxes, gt_valid, label_enc, rng, box_noise_scale, **kw):
+        return real(gt_boxes, gt_valid, label_enc, dn_key, box_noise_scale, **kw)
+
+    monkeypatch.setattr(jdetr, "prepare_dn_static", pinned)
+    boxes, valid, pm = targets
+    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm, "has_masks": False}
+    weights = loss_weights(cfg)
+
+    def loss_fn(p):
+        losses = jm.apply({"params": p}, *inputs, targets=tgt, train=True,
+                          rngs={"dn": jax.random.PRNGKey(0)})
+        return weighted_total(losses, weights), losses
+
+    (total, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        params["params"])
+    return total, losses, grads
+
+
+def bridge_sources(params):
+    """{port key: the JAX leaf paths the bridge builds it from}, recorded
+    by running `convert.fill_model` over the tree."""
+    from uninext_tpu_torch.engine import convert
+
+    lv = convert._Leaves(params)
+    taken, sources = [], {}
+    take = lv.take
+
+    def recording_take(path):
+        taken.append(path)
+        return take(path)
+
+    lv.take = recording_take
+
+    class Recorder(dict):
+        def __setitem__(self, key, value):
+            sources[key] = list(taken)
+            taken.clear()
+            super().__setitem__(key, value)
+
+    convert.fill_model(Recorder(), "", lv, "")
+    return sources

@@ -9,6 +9,11 @@ Layouts turn around as there: Dense kernels (in, out) become Linear weights
 norms' `scale` becomes `weight`; the decoder self-attention's q/k/v
 projections become one `in_proj_weight`.
 
+The backbone is the one the tree holds: `backbone/stem_conv` marks a
+ResNet, whose FrozenBN `scale`/`bias`/`mean`/`var` become detectron2's
+`weight`/`bias`/`running_mean`/`running_var`; else it is a ViT. The mask
+head (`controller`, `mask_head`) is filled when the tree has it.
+
 Two places need care:
   * the JAX encoder is scan-stacked (`transformer/encoder_scan/layer/*`
     with a leading layer axis); the bridge unstacks it into
@@ -74,7 +79,8 @@ def _dense(sd, key, lv, path):
 
 def _conv(sd, key, lv, path):
     sd[key + "weight"] = lv.take(_j(path, "kernel")).transpose(3, 2, 0, 1)
-    sd[key + "bias"] = lv.take(_j(path, "bias"))
+    if lv.has(_j(path, "bias")):
+        sd[key + "bias"] = lv.take(_j(path, "bias"))
 
 
 def _norm(sd, key, lv, path):
@@ -87,6 +93,35 @@ def _mlp(sd, key, lv, path):
     while lv.has(_j(path, f"layer_{j}")):
         _dense(sd, f"{key}layers.{j}.", lv, _j(path, f"layer_{j}"))
         j += 1
+
+
+_FROZEN_BN = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+              ("var", "running_var"))
+
+
+def _frozen_bn(sd, key, lv, path):
+    for src, dst in _FROZEN_BN:
+        sd[key + dst] = lv.take(_j(path, src))
+
+
+# a ResNet block's convolutions and the JAX names of their norms
+_RESNET_BN = {"conv1": "bn1", "conv2": "bn2", "conv3": "bn3", "shortcut": "shortcut_bn"}
+
+
+def fill_resnet(sd, key, lv, path):
+    """detectron2's ResNet: stem.conv1 (+ .norm), res{s}.{b}.conv{1,2,3}
+    and res{s}.{b}.shortcut (+ .norm each)."""
+    _conv(sd, key + "stem.conv1.", lv, _j(path, "stem_conv"))
+    _frozen_bn(sd, key + "stem.conv1.norm.", lv, _j(path, "stem_bn"))
+    for s in range(2, 6):
+        b = 0
+        while lv.has(_j(path, f"res{s}_block{b}")):
+            bp, bk = _j(path, f"res{s}_block{b}"), f"{key}res{s}.{b}."
+            for conv, bn in _RESNET_BN.items():
+                if lv.has(_j(bp, conv)):
+                    _conv(sd, f"{bk}{conv}.", lv, _j(bp, conv))
+                    _frozen_bn(sd, f"{bk}{conv}.norm.", lv, _j(bp, bn))
+            b += 1
 
 
 def fill_vit(sd, key, lv, path):
@@ -226,9 +261,18 @@ def fill_heads(sd, key, lv, path):
         _mlp(sd, f"{key}bbox_embed.{i}.", lv, _j(path, f"bbox_embed_{i}"))
 
 
+def fill_mask_head(sd, key, lv, path):
+    """The controller MLP and the five 3x3 convolutions of the mask head."""
+    _mlp(sd, key + "controller.", lv, _j(path, "controller"))
+    for n in ("lay1", "lay2", "lay3", "lay4", "jia_dcn"):
+        _conv(sd, f"{key}mask_head.{n}.", lv, _j(path, f"mask_head/{n}"))
+
+
 def fill_model(sd, key, lv, path):
-    """The whole detection model (`UninextDETR` of the JAX package)."""
-    fill_vit(sd, key + ROOT + "backbone.0.backbone.", lv, _j(path, "backbone"))
+    """The whole detection model (`UninextDETR` of the JAX package), with
+    the backbone the tree holds and, if it has one, the mask head."""
+    fill_backbone = fill_resnet if lv.has(_j(path, "backbone/stem_conv")) else fill_vit
+    fill_backbone(sd, key + ROOT + "backbone.0.backbone.", lv, _j(path, "backbone"))
     i = 0
     while lv.has(_j(path, f"input_proj_{i}")):
         _conv(sd, f"{key}{ROOT}input_proj.{i}.0.", lv, _j(path, f"input_proj_{i}"))
@@ -239,6 +283,28 @@ def fill_model(sd, key, lv, path):
     fill_heads(sd, key + ROOT, lv, path)
     _dense(sd, key + DN_ROOT + "fc.", lv, _j(path, "dn_resizer/fc"))
     _norm(sd, key + DN_ROOT + "layer_norm.", lv, _j(path, "dn_resizer/ln"))
+    if lv.has(_j(path, "controller")):
+        fill_mask_head(sd, key + "detr.", lv, path)
+
+
+_RESNET_KEY = re.compile(r"detr\.detr\.backbone\.0\.backbone\.(?:stem\.conv1|"
+                         r"(res\d)\.(\d+)\.(conv\d|shortcut))(\.norm)?\.(\w+)")
+
+
+def _resnet_leaf(port_key: str):
+    """The JAX leaf of a ResNet parameter, e.g. `backbone/res2_block0/bn1/mean`
+    for `detr.detr.backbone.0.backbone.res2.0.conv1.norm.running_mean`;
+    None for any other key."""
+    m = _RESNET_KEY.fullmatch(port_key)
+    if m is None:
+        return None
+    stage, block, conv, norm, leaf = m.groups()
+    if stage is None:
+        module = "stem_bn" if norm else "stem_conv"
+    else:
+        module = f"{stage}_block{block}/{_RESNET_BN[conv] if norm else conv}"
+    leaf = {d: s for s, d in _FROZEN_BN}[leaf] if norm else "kernel"
+    return f"backbone/{module}/{leaf}"
 
 
 # port-key patterns -> the JAX module each is filled from (by `fill_model`
@@ -246,6 +312,8 @@ def fill_model(sd, key, lv, path):
 # names. First match wins.
 _MODULE_PATHS = tuple((re.compile(p), r) for p, r in (
     (r"detr\.detr\.backbone\.0\.backbone\.(.*)", r"backbone/\1"),
+    (r"detr\.controller\.layers\.(\d+)\.(.*)", r"controller/layer_\1/\2"),
+    (r"detr\.mask_head\.(.*)", r"mask_head/\1"),
     (r"text_encoder\.body\.model\.(.*)", r"bert/\1"),
     (r"detr\.resizer\.(.*)", r"dn_resizer/\1"),
     (r"detr\.detr\.transformer\.encoder\.vl_layers\.(\d+)\.b_attn\.(.*)",
@@ -265,8 +333,12 @@ def jax_module_path(port_key: str) -> str:
     """The JAX module path a port parameter of `UninextDETR` is filled from,
     e.g. `transformer/vl_layer_0/attn/v_proj/weight` for
     `detr.detr.transformer.encoder.vl_layers.0.b_attn.attn.v_proj.weight`
-    (module names as the JAX tree's, the leaf as the port's). Enough for
-    path rules such as the optimizer's `classify_param`."""
+    (module names as the JAX tree's, the leaf as the port's), and the JAX
+    leaf itself for the ResNet's (`_resnet_leaf`): the optimizer's
+    `classify_param` keys on `/mean`, `/var`, `/stem` and `res2_block`."""
+    leaf = _resnet_leaf(port_key)
+    if leaf is not None:
+        return leaf
     for pattern, repl in _MODULE_PATHS:
         m = pattern.fullmatch(port_key)
         if m:

@@ -11,7 +11,11 @@ backbone x backbone_multiplier, `sampling_offsets` x linear_proj_multiplier,
 BERT at lang_lr, VL fusion at vl_lr, everything else at base_lr. As in the
 JAX code, `reference_points` falls in the base group and weight decay
 applies to every parameter (optax's `add_decayed_weights` has no mask
-here). Adam's eps sits outside the square root. The clip is optax's: the
+here). The ResNet's stem, res2 and every FrozenBN mean and var form the
+"frozen" group, which never moves; they keep their gradients all the same,
+and those enter the global norm of the clip, as the JAX package
+differentiates them too. The FrozenBN scale and bias of res3-res5 fall in
+the backbone group and train, as in the JAX package. Adam's eps sits outside the square root. The clip is optax's: the
 gradients are scaled by grad_clip / norm when the global norm is at least
 grad_clip, with nothing added to the norm (`clip_grad_norm_` adds 1e-6).
 Updates run as `torch._foreach_*` ops per group, in place.

@@ -1,10 +1,13 @@
-"""UninextDETR, mirroring `uninext_tpu/models/detr.py`, for the detection
-task with the ViT-H backbone: inference (`forward`) and the training
+"""UninextDETR, mirroring `uninext_tpu/models/detr.py`, with the ResNet-50
+and ViT-H backbones: inference for detection and grounding (`forward`), the
+masks of selected queries (`predict_masks`), and the detection training
 losses (`forward_train`, without the mask losses).
 
     (images, img_mask, prompt tokens) -> backbone -> input projections ->
     BERT prompt -> VL-fused deformable transformer (two-stage) ->
     per-layer VL alignment logits, refined boxes and IoU logits
+    [-> masks: the dynamic mask head on the encoder memory, for the queries
+        a caller selected (`models/postprocess.py`)]
     [-> training: DN queries, per-layer simOTA / encoder Hungarian
         matching, focal, L1, GIoU and IoU-branch losses]
 
@@ -13,17 +16,19 @@ and padded to a multiple of 32; `img_mask` (B, H, W) True for padding.
 
 Module nesting follows the reference UNINEXT checkpoint, so
 `state_dict()` keys are the reference keys:
-`detr.detr.backbone.0.backbone.*` (D2ViT), `detr.detr.input_proj.*`,
-`detr.detr.transformer.*`, `detr.detr.{class_embed,bbox_embed,iou_head}.*`,
-`detr.resizer.*` (the DN label encoder) and `text_encoder.body.model.*`
-(HF BERT). `engine/convert.py` fills them from a JAX parameter tree.
+`detr.detr.backbone.0.backbone.*` (detectron2's ResNet or D2ViT),
+`detr.detr.input_proj.*`, `detr.detr.transformer.*`,
+`detr.detr.{class_embed,bbox_embed,iou_head}.*`, `detr.controller.*` and
+`detr.mask_head.*` (the mask head), `detr.resizer.*` (the DN label encoder)
+and `text_encoder.body.model.*` (HF BERT). `engine/convert.py` fills them
+from a JAX parameter tree.
 
 Random numbers of training (DN box noise, drop-path masks) come from an
 explicit `torch.Generator`, or the DN noise from the caller; the JAX
 package's `jax.random` stream is not reproduced.
 
-Not ported yet: the ResNet and ConvNeXt backbones, the mask head and its
-losses, reid, SOT/VOS templates, grounding and video training.
+Not ported yet: the ConvNeXt backbone, the mask and grounding losses,
+reid, SOT/VOS templates and video training.
 """
 from __future__ import annotations
 
@@ -42,8 +47,10 @@ from . import criterion as crit
 from .bert import BertModel
 from .heads import StillClassifier, VLAlign
 from .layers import MLP, Conv2d, FeatureResizer, GroupNorm, Linear
+from .mask_head import MaskHeadSmallConv, dynamic_mask_forward, num_gen_params
 from .matcher import hungarian_match, ota_cost_and_iou, simota_match, vl_cost_matrix
 from .position_encoding import position_embedding_sine
+from .resnet import ResNet
 from .transformer import UninextTransformer
 from .vit import ViT
 
@@ -135,16 +142,19 @@ class DeformableDETR(nn.Module):
     def __init__(self, cfg: UninextConfig, dtype: torch.dtype):
         super().__init__()
         t, b = cfg.transformer, cfg.backbone
-        if b.name != "vit_huge":
+        if b.name == "resnet50":
+            trunk = ResNet(in_channels=b.in_channels, dtype=dtype)
+        elif b.name == "vit_huge":
+            trunk = ViT(patch_size=b.vit_patch_size, embed_dim=b.vit_embed_dim,
+                        depth=b.vit_depth, num_heads=b.vit_num_heads,
+                        window_size=b.vit_window_size,
+                        global_blocks=b.vit_global_blocks,
+                        in_channels=b.in_channels, dtype=dtype,
+                        drop_path_rate=b.vit_drop_path_rate,
+                        use_checkpoint=b.vit_use_checkpoint)
+        else:
             raise NotImplementedError(f"backbone {b.name} is not ported yet")
-        vit = ViT(patch_size=b.vit_patch_size, embed_dim=b.vit_embed_dim,
-                  depth=b.vit_depth, num_heads=b.vit_num_heads,
-                  window_size=b.vit_window_size,
-                  global_blocks=b.vit_global_blocks,
-                  in_channels=b.in_channels, dtype=dtype,
-                  drop_path_rate=b.vit_drop_path_rate,
-                  use_checkpoint=b.vit_use_checkpoint)
-        self.backbone = nn.ModuleList([_Nest("backbone", vit)])
+        self.backbone = nn.ModuleList([_Nest("backbone", trunk)])
         n_bb = len(b.out_channels)
         projs = []
         for i in range(t.num_feature_levels):
@@ -185,13 +195,18 @@ class DeformableDETR(nn.Module):
 
 
 class _DNWrapper(nn.Module):
-    """The reference's DDETRSegmUniDN level: the DETR and the DN label
-    encoder (`resizer`, language pool -> d_model)."""
+    """The reference's DDETRSegmUniDN level: the DETR, the DN label encoder
+    (`resizer`, language pool -> d_model) and, with the mask head enabled,
+    the `controller` (query -> dynamic mask parameters) and `mask_head`."""
 
     def __init__(self, cfg: UninextConfig, dtype: torch.dtype):
         super().__init__()
+        d = cfg.transformer.d_model
         self.detr = DeformableDETR(cfg, dtype)
-        self.resizer = FeatureResizer(cfg.language.hidden_dim, cfg.transformer.d_model)
+        self.resizer = FeatureResizer(cfg.language.hidden_dim, d)
+        if cfg.mask_head.enabled:
+            self.controller = MLP(d, d, num_gen_params(cfg.mask_head, d // 32), 3)
+            self.mask_head = MaskHeadSmallConv(d, dtype)
 
 
 class UninextDETR(nn.Module):
@@ -233,8 +248,11 @@ class UninextDETR(nn.Module):
         `train` turns on the backbone's drop-path and checkpointing."""
         c = self.cfg
         t = c.transformer
-        feats = self.core.backbone[0].backbone(images, train=train,
-                                               generator=generator)
+        trunk = self.core.backbone[0].backbone
+        if c.backbone.name == "resnet50":       # frozen BN: no train mode
+            feats = trunk(images)
+        else:
+            feats = trunk(images, train=train, generator=generator)
         level_feats = [feats[f"res{i + 3}"] for i in range(len(c.backbone.out_channels))]
         srcs, masks, poses = [], [], []
         for i, proj in enumerate(self.core.input_proj):
@@ -251,33 +269,36 @@ class UninextDETR(nn.Module):
                                                  dtype=self.compute_dtype))
         return srcs, masks, poses
 
-    def _decode_outputs(self, trans, lvl: int) -> Dict[str, torch.Tensor]:
+    def _decode_outputs(self, trans, lvl: int, task: str = "detection",
+                        lang_mask: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
         """Alignment logits, refined boxes and IoU logits of decoder layer
-        `lvl` (detection: logits against every prompt token)."""
+        `lvl`. Detection aligns each query with every prompt token (B, Q, T);
+        grounding with the pooled expression (B, Q, 1)."""
         base = (trans["init_reference"] if lvl == 0
                 else trans["inter_references"][lvl - 1])
         hs = trans["hs"][lvl]
+        lang = trans["lang_hidden"]
+        if task == "grounding":
+            lang = agg_lang_feat(lang, lang_mask)[:, None]
         delta = self.core.bbox_embed[lvl](hs).float()
-        return {"pred_logits": self.core.class_embed[lvl](hs, trans["lang_hidden"]),
+        return {"pred_logits": self.core.class_embed[lvl](hs, lang),
                 "pred_boxes": (delta + inverse_sigmoid(base)).sigmoid(),
                 "pred_boxious": self.core.iou_head[lvl](hs.float()),
                 "hs": hs, "base_reference": base}
 
-    def inference_outputs(self, trans) -> Dict[str, torch.Tensor]:
-        """The last decoder layer's outputs for `postprocess_detection`;
-        the other layers' heads feed only the training losses."""
-        out = self._decode_outputs(trans, self.cfg.transformer.dec_layers - 1)
-        out["memory"] = trans["memory"]
-        return out
-
     def forward(self, images: torch.Tensor, img_mask: torch.Tensor,
                 image_sizes: torch.Tensor, text_ids: Optional[torch.Tensor],
                 text_mask: torch.Tensor, task: str = "detection",
-                lang_dict: Optional[Dict[str, torch.Tensor]] = None
-                ) -> Dict[str, torch.Tensor]:
-        """Detection inference. `lang_dict` (the output of `encode_text`)
-        lets a server encode its category prompt once and reuse it."""
-        if task != "detection":
+                lang_dict: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+        """Inference for `task` "detection" (a category prompt) or
+        "grounding" (an expression). `lang_dict` (the output of
+        `encode_text`) lets a server encode its category prompt once and
+        reuse it. Returns the last decoder layer's logits, boxes and IoU
+        logits with what `predict_masks` takes: `hs`, `base_reference`, the
+        encoder `memory` and the level shapes of this input,
+        `spatial_shapes`. The other layers' heads feed only the losses."""
+        if task not in ("detection", "grounding"):
             raise NotImplementedError(f"task {task!r} is not ported yet")
         t = self.cfg.transformer
         lang = lang_dict if lang_dict is not None else self.encode_text(
@@ -289,7 +310,30 @@ class UninextDETR(nn.Module):
             enc_class_head=core.class_embed[t.dec_layers],
             enc_bbox_head=core.bbox_embed[t.dec_layers],
             bbox_heads=core.bbox_embed[:t.dec_layers])
-        return self.inference_outputs(trans)
+        out = self._decode_outputs(trans, t.dec_layers - 1, task, lang["masks"])
+        out["memory"] = trans["memory"]
+        out["spatial_shapes"] = tuple((s.shape[1], s.shape[2]) for s in srcs)
+        return out
+
+    def predict_masks(self, memory: torch.Tensor,
+                      spatial_shapes: Tuple[Tuple[int, int], ...],
+                      hs_sel: torch.Tensor, base_ref_sel: torch.Tensor,
+                      image_sizes: torch.Tensor) -> torch.Tensor:
+        """Mask logits (B, K, H/4, W/4) for K selected queries: their decoder
+        states hs_sel (B, K, C) and base references base_ref_sel (B, K, 4),
+        whose centres scaled by image_sizes' (w, h) place the relative
+        coordinates. The mask features come from the encoder memory's first
+        three levels."""
+        B, d = memory.shape[0], self.cfg.transformer.d_model
+        feats, start = [], 0
+        for h, w in spatial_shapes[:3]:
+            feats.append(memory[:, start:start + h * w].reshape(B, h, w, d))
+            start += h * w
+        mask_feats = self.detr.mask_head(feats)
+        params = self.detr.controller(hs_sel)
+        centers = base_ref_sel[..., :2] * image_sizes.flip(-1)[:, None].float()
+        return dynamic_mask_forward(mask_feats.float(), centers, params,
+                                    self.cfg.mask_head)
 
 
     def forward_train(self, images: torch.Tensor, img_mask: torch.Tensor,

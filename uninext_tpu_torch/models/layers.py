@@ -42,8 +42,11 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        # the NCHW view of an NHWC tensor is channels-last strided, which
+        # cuDNN takes as it is; its output is channels-last too
         y = self._conv_forward(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), self.bias.to(dt))
+                               self.weight.to(dt), bias)
         return y.permute(0, 2, 3, 1)
 
 

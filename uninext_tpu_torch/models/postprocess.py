@@ -1,6 +1,10 @@
 """Inference postprocessing, mirroring `uninext_tpu/models/postprocess.py`:
 grounding -> OD logits (mean over each class's tokens), IoU-aware score
-sqrt(sigmoid(cls) * sigmoid(iou)), class-aware NMS (the NMS kernel) and top-k."""
+sqrt(sigmoid(cls) * sigmoid(iou)), class-aware NMS (the NMS kernel) and top-k.
+
+Also the two query selections that the JAX package computes inline before
+`predict_masks`: the top-k detections' masks of instance segmentation
+(`bench_instseg`) and the top-1 box and mask of REC/RES (`bench_rec`)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -48,3 +52,40 @@ def postprocess_detection(outputs: Dict[str, torch.Tensor],
     sel_boxes = torch.gather(boxes_xyxy, 1, query_idx[..., None].expand(-1, -1, 4))
     return {"boxes": sel_boxes, "scores": scores, "classes": classes,
             "query_idx": query_idx}
+
+
+def _take_queries(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, Q, C) at query indices idx (B, K) -> (B, K, C)."""
+    return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
+
+
+def postprocess_instseg(model, outputs: Dict, cls_token_map: torch.Tensor,
+                  image_sizes: torch.Tensor, max_inst: int = 100) -> Dict:
+    """Instance segmentation (`bench.py:bench_instseg`,
+    `uninext_tpu/engine/evaluator.py:47-61`): `postprocess_detection`'s
+    top `max_inst`, then the masks of those queries. Adds mask_logits
+    (B, max_inst, H/4, W/4) to its dict."""
+    post = postprocess_detection(outputs, cls_token_map, max_inst=max_inst)
+    idx = post["query_idx"]
+    post["mask_logits"] = model.predict_masks(
+        outputs["memory"], outputs["spatial_shapes"],
+        _take_queries(outputs["hs"], idx),
+        _take_queries(outputs["base_reference"], idx), image_sizes)
+    return post
+
+
+def postprocess_rec(model, outputs: Dict, image_sizes: torch.Tensor) -> Dict:
+    """REC/RES on a grounding forward (`bench.py:bench_rec`,
+    `uninext_tpu/engine/evaluator.py:231-244`): the query of the largest
+    sqrt(sigmoid(logit) * sigmoid(iou)), its box (B, 4) cxcywh normalised
+    and its mask logits (B, 1, H/4, W/4)."""
+    prob = outputs["pred_logits"][..., 0].float().sigmoid()
+    if "pred_boxious" in outputs:
+        prob = (prob * outputs["pred_boxious"][..., 0].float().sigmoid()).sqrt()
+    best = prob.argmax(-1)[:, None]          # the first maximum, as jnp.argmax
+    masks = model.predict_masks(
+        outputs["memory"], outputs["spatial_shapes"],
+        _take_queries(outputs["hs"], best),
+        _take_queries(outputs["base_reference"], best), image_sizes)
+    return {"box": _take_queries(outputs["pred_boxes"], best)[:, 0],
+            "query_idx": best[:, 0], "mask_logits": masks}
