@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: ViT-H detection
 serving and training, R50's three serving paths (detection, instance masks,
-REC/RES) and its training step, and the labs (`tools/`).
+REC/RES), its training step and its training loop with checkpoints and COCO
+evaluation, and the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -19,7 +20,8 @@ nonzero):
      sets (uniform, and shaped like the model's), also over CUDA graph
      replays, with the L2 volume it moves; NMS's keep mask equal to the
      plain version's, its wrapper eagerly and over graph replays, and the
-     one kernel the profiler sees it launch;
+     one kernel the profiler sees it launch; kernel A on 4 of the 16 heads
+     of a global block beside SDPA (A′'s work on each card at k = 4);
   3. backward kernels: A-bwd and MSDA-bwd against autograd through the
      plain versions at the training shapes, fp32 and bf16 (A-bwd: bf16 on
      the tensor cores, fp32 on the CUDA cores), timed the same way; A-bwd's
@@ -62,7 +64,18 @@ nonzero):
      peak memory per task;
   8. R50 training: as 6 with 1 warm-up and 2 timed steps (MSDA 18 of which
      6 recomputes, MSDA-bwd 12); the frozen parameters (stem, res2, every
-     FrozenBN mean and var) come out bit-equal, a res3 convolution moves.
+     FrozenBN mean and var) come out bit-equal, a res3 convolution moves;
+  9. R50 training loop: a mini-COCO of 8 train and 8 val images written to
+     a temporary directory, at the flagship fixture run's data settings
+     (`uninext_tpu_torch/tools/ap_check.py`: LSJ 224 with masks, bs=2);
+     the port's `Trainer` for 10 updates with a checkpoint at step 10; a
+     second `Trainer` (other weights, `grad_accum_steps` 2) resumes it, its
+     state bit-equal to the first's, and takes 10 micro-steps (5 updates);
+     `DetectionEvaluator` (bbox, then segm; the C++ COCO matcher, built by
+     g++ into `build/`) on the val images, whose AP values must be finite;
+     step times, peak memory and seconds per evaluated image; launches
+     (MSDA 18 and MSDA-bwd 12 a micro-step, MSDA 12 and NMS 1 an evaluated
+     image) counted as path "r50_train_loop".
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -84,6 +97,8 @@ N_REQUESTS = 4
 TRAIN_BATCH = 2
 TRAIN_STEPS = 3
 R50_TRAIN_STEPS = 2
+LOOP_STEPS = 10            # updates before the checkpoint, then as many micro-steps
+LOOP_IMAGES = 8            # train and val images of the loop's mini-COCO
 # NVIDIA H100 SXM data sheet, dense, at 700 W: the bound of a kernel is the
 # larger of its bytes over HBM_BPS and its operations over the peak of
 # their type (bf16 tensor cores for the attention products, fp32 CUDA
@@ -335,6 +350,27 @@ def phase_kernels():
     a = rec["rel_pos_flash_attn"]
     print(f"[kernel A] tensor-core route, global block: {a['ms']:.4f} ms against SDPA's "
           f"{a['library_ms']:.4f} ms in this run")
+    # A' (the heads split over k cards) does on each card what A does on
+    # nh / k heads: at k = 4, a global block of 4 heads, bf16
+    nh, hd, dt = 16 // 4, 80, torch.bfloat16
+    base, rh, rw = _attention_inputs(dev, g, 1, H, W, nh, hd)
+    q, k, v = base.to(dt).unbind(2)
+    q5 = q.reshape(1, H, W, nh, hd)
+    args = (q5, k, v, rh.to(dt), rw.to(dt), hd ** -0.5)
+    err = _check(f"A' per card k=4 {dt}", vit.flash_rel_pos_attention(*args),
+                 vit.rel_pos_attention_plain(*args), tol[dt])
+    ms = _timed(lambda: vit.flash_rel_pos_attention(*args), 20)
+    sq, sk, sv, bias = _sdpa_args(q5, k, v, rh.to(dt), rw.to(dt))
+    lib = _timed(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias), 20)
+    S = H * W
+    b_ms, b_by = _bound(2 * (4 * S * nh * hd + H * H * hd + W * W * hd),
+                        nh * (4 * S * S * hd + 2 * S * (H + W) * hd), "bf16")
+    a.update(tp4_ms=ms, tp4_library_ms=lib, tp4_bound_ms=b_ms)
+    print(f"[kernel A'] per card at k=4: kernel A on 1x{H}x{W}x{nh}x{hd} bf16: "
+          f"max_abs_err={err:.3g}, wrapper {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its "
+          f"bound {b_ms:.4f} ms, {b_by}); SDPA with a float bias mask {lib:.4f} ms")
+    del base, q, k, v, q5, args, sq, sk, sv, bias
+    torch.cuda.empty_cache()
 
     # MSDA: encoder (Lq = S = 20197) and decoder (Lq = 900) calls, on two
     # location sets: uniform in [-0.1, 1.1] (the set of the first timings) and
@@ -1305,6 +1341,183 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
     return launches
 
 
+def _recording_msda():
+    """Put a pass-through in front of the model's MSDA entry (`models/
+    layers.py` calls `ms_deform_attn` by that name) that records each call's
+    (B, level shapes, Lq, M, D, P, value dtype, with gradient). Returns the
+    records and a function that takes the pass-through out again."""
+    import torch
+    from uninext_tpu_torch.models import layers
+    real, seen = layers.ms_deform_attn, set()
+
+    def recording(value, spatial_shapes, loc, att):
+        B, _, M, D = value.shape
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (value, loc, att))
+        seen.add((B, tuple(tuple(int(x) for x in hw) for hw in spatial_shapes),
+                  loc.shape[1], M, D, loc.shape[4], value.dtype, grad))
+        return real(value, spatial_shapes, loc, att)
+
+    layers.ms_deform_attn = recording
+    return seen, lambda: setattr(layers, "ms_deform_attn", real)
+
+
+def _check_msda_calls(calls):
+    """MSDA against its plain version at every (B, level shapes, Lq, dtype)
+    in `calls`, and MSDA-bwd against autograd through the plain version at
+    those taken with a gradient, on random values and locations shaped like
+    the model's (`_msda_model_set`), at phase_kernels' and
+    phase_backward_kernels' tolerances. Returns each kernel's largest errors
+    and the number of shapes held."""
+    import torch
+    from uninext_tpu_torch.ops import msda
+    tol_fwd = {torch.float32: 5e-5, torch.bfloat16: 3.2e-2}
+    tol_bwd = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+    g = torch.Generator(device="cuda").manual_seed(12)
+    fwd = {"loop_max_abs_err": 0.0, "loop_shapes": 0}
+    bwd = {"loop_max_abs_err": 0.0, "loop_max_rel_err": 0.0, "loop_shapes": 0}
+    for B, shapes, Lq, M, D, P, dt, grad in sorted(calls, key=str):
+        S = sum(h * w for h, w in shapes)
+        value = torch.randn(B, S, M, D, device="cuda", generator=g).to(dt)
+        loc, att = _msda_model_set(g, B, Lq, shapes, M, P, encoder=Lq == S)
+        what = f"B={B} levels={list(shapes)} Lq={Lq} {str(dt)[6:]}"
+        err = _check(f"ms_deform_attn at the loop's {what}",
+                     msda.ms_deform_attn(value, shapes, loc, att),
+                     msda.ms_deform_attn_plain(value, shapes, loc, att), tol_fwd[dt])
+        fwd["loop_max_abs_err"] = max(fwd["loop_max_abs_err"], err)
+        fwd["loop_shapes"] += 1
+        line = f"[train loop] {what}: MSDA max_abs_err {err:.3g} (tol {tol_fwd[dt]})"
+        if grad:
+            cot = torch.randn(B, Lq, M * D, device="cuda", generator=g).to(dt)
+            errs, rels, _ = _msda_bwd_check(f"at the loop's {what}", value, shapes, loc,
+                                            att, cot, tol_bwd[dt], plain_ms=False)
+            bwd["loop_max_abs_err"] = max(bwd["loop_max_abs_err"], *errs)
+            bwd["loop_max_rel_err"] = max(bwd["loop_max_rel_err"], *rels)
+            bwd["loop_shapes"] += 1
+            line += (f"; MSDA-bwd dvalue/dloc/datt / max |grad| = "
+                     + "/".join(f"{x:.3g}" for x in rels) + f" (tol {tol_bwd[dt]})")
+        print(line)
+    if not bwd["loop_shapes"]:
+        raise AssertionError("the loop made no MSDA call with a gradient")
+    return {"ms_deform_attn_fwd": fwd, "ms_deform_attn_bwd": bwd}
+
+
+def phase_train_loop(profile: bool):
+    """`image_joint_r50` at full width through the port's training loop on
+    a mini-COCO of LOOP_IMAGES train and LOOP_IMAGES val images written to
+    a temporary directory, at the flagship fixture run's data settings
+    (`tools/ap_check.py`: LSJ 224 with masks, bs=2): `Trainer` for
+    LOOP_STEPS updates, a checkpoint at that step; a second `Trainer`
+    (other weights) with `grad_accum_steps` 2 resumes it (the state must be
+    bit-equal) and takes LOOP_STEPS more micro-steps (LOOP_STEPS / 2
+    updates); then `DetectionEvaluator` on the val images (bbox, then segm;
+    the C++ matcher, built by g++). With `profile`, one more micro-step and
+    one more evaluated image (with masks) under the profiler, after the
+    launches are read. After the launches are read, MSDA and MSDA-bwd are
+    held against their plain versions at every shape the loop gave them
+    (`_check_msda_calls`). Returns the launch counts and those checks."""
+    import dataclasses
+    import tempfile
+    import torch
+    from uninext_tpu_torch.engine.checkpoint import state_differences
+    from uninext_tpu_torch.engine.trainer import Trainer
+    from uninext_tpu_torch.evaluation import fast_eval
+    from uninext_tpu_torch.tools import ap_check
+    counters = _counters()
+    cfg = ap_check.build_cfg(LOOP_STEPS)
+    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(
+        cfg.solver, checkpoint_period=LOOP_STEPS))
+    accum = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver,
+                                                                grad_accum_steps=2))
+    t0 = time.perf_counter()
+    lib = fast_eval.library()
+    print(f"[train loop] C++ COCO matcher {os.path.basename(lib._name)} built and loaded "
+          f"in {time.perf_counter() - t0:.1f} s")
+    calls, unrecord = _recording_msda()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as root:
+        t0 = time.perf_counter()
+        loader, val_recs, mapper, cmap = ap_check.fixture(
+            os.path.join(root, "data"), cfg, LOOP_IMAGES, LOOP_IMAGES)
+        batches = iter(loader)
+        run = os.path.join(root, "run")
+        log_a, log_b = ap_check.StepLog(), ap_check.StepLog()
+        first = Trainer(cfg, batches, output_dir=run, seed=0, extra_hooks=[log_a])
+        print(f"[train loop] mini-COCO of {LOOP_IMAGES} + {LOOP_IMAGES} images written and "
+              f"the trainer built in {time.perf_counter() - t0:.1f} s")
+        first.train()
+        saved = first.ckpt.all_steps()
+        second = Trainer(accum, batches, output_dir=run, seed=1, extra_hooks=[log_b])
+        if not second.resume_or_load():
+            raise AssertionError(f"no checkpoint to resume from (saved: {saved})")
+        diff = state_differences(first.state, second.state)
+        if diff:
+            raise AssertionError(f"resumed state differs from the saved one: {diff[:8]}")
+        print(f"[train loop] checkpoints at steps {saved}; the resumed state is bit-equal "
+              f"to the trainer's (every parameter and buffer, both Adam moments, count "
+              f"{second.state.optimizer.count}, step {second.state.step}, generator)")
+        del first
+        second.train()
+        extra = next(batches)
+        batches.close()
+        opt = second.state.optimizer
+        if (opt.count, second.state.step) != (LOOP_STEPS + LOOP_STEPS // 2, 2 * LOOP_STEPS):
+            raise AssertionError(f"after the accumulated steps: {opt.count} updates, "
+                                 f"{second.state.step} micro-steps")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        results, times = ap_check.evaluate(second.model, accum, cmap, val_recs, mapper)
+        eval_s = time.perf_counter() - t0
+        sample = mapper(val_recs[0])
+    unrecord()
+    losses = log_a.total_loss + log_b.total_loss
+    step_ms = [x * 1e3 for x in log_a.seconds + log_b.seconds]
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite total loss: {losses}")
+    print("[train loop] total loss per micro-step: " + ", ".join(f"{x:.4g}" for x in losses))
+    print(f"[train loop] step ms (host clock to the end of each step's device work): "
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"; the last {LOOP_STEPS} (accumulating, k=2) median "
+          f"{sorted(step_ms[LOOP_STEPS:])[LOOP_STEPS // 2]:.1f}; peak device memory "
+          f"{peak:.2f} GiB (max_memory_allocated, two trainers)")
+    sec = ap_check.image_seconds(times)
+    print(f"[train loop] evaluation of {len(val_recs)} val images, bbox then segm: "
+          f"{eval_s:.1f} s; seconds per image {sec}")
+    for kind, res in results.items():
+        print(f"[train loop] {kind} AP after {2 * LOOP_STEPS} micro-steps: "
+              + json.dumps({k: round(v, 4) for k, v in res.items()}))
+        bad = [k for k in ("AP", "AP50", "AP75") if not math.isfinite(res[k])]
+        if bad:
+            raise AssertionError(f"{kind}: non-finite {bad}")
+    launches = {k: c.launches for k, c in counters.items()}
+    tr = cfg.transformer
+    n_eval = 2 * len(val_recs)          # every val image in bbox and in segm
+    n_remat = tr.enc_layers if cfg.remat_encoder else 0
+    expect = {**dict.fromkeys(counters, 0),
+              "ms_deform_attn_fwd": 2 * LOOP_STEPS * (tr.enc_layers + tr.dec_layers + n_remat)
+              + n_eval * (tr.enc_layers + tr.dec_layers),
+              "ms_deform_attn_bwd": 2 * LOOP_STEPS * (tr.enc_layers + tr.dec_layers),
+              "nms": n_eval}
+    print(f"[train loop] kernel launches: {launches}; expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"train loop launches {launches} != {expect}")
+    checks = _check_msda_calls(calls)
+    if profile:
+        from uninext_tpu_torch.engine.evaluator import DetectionEvaluator
+        from uninext_tpu_torch.engine.train import train_step
+        from uninext_tpu_torch.engine.trainer import to_device
+        dev = torch.device("cuda")
+        _profile(lambda: train_step(second.state, to_device(extra, dev, True)),
+                 "one R50 training-loop micro-step (LSJ 224, bs=2, masks, accumulating)")
+        ev = DetectionEvaluator(second.model.eval(), accum, cmap, with_masks=True)
+        _profile(lambda: ev.predict(sample), "one R50 evaluated image with masks "
+                 f"({sample.bucket[0]}x{sample.bucket[1]})")
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -1406,12 +1619,16 @@ def main():
     r50_serving = phase_serving(r50, "image_joint_r50", ("detection", "instseg", "rec"),
                                 profile)
     r50_training = phase_training(r50, "image_joint_r50", R50_TRAIN_STEPS, profile)
+    r50_loop, loop_checks = phase_train_loop(profile)
+    for name, r in loop_checks.items():
+        rec[name].update(r)
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], r["loop_max_abs_err"])
     import torch
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         by_path = {"serving": serving["detection"][name], "training": training[name],
                    **{f"r50_{task}": n[name] for task, n in r50_serving.items()},
-                   "r50_training": r50_training[name],
+                   "r50_training": r50_training[name], "r50_train_loop": r50_loop[name],
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -1427,7 +1644,9 @@ def main():
                                              "window_library_ms", "window_bound_ms",
                                              "graph_ms", "eager_ms", "model_ms", "model_graph_ms",
                                              "decoder_ms", "decoder_model_ms", "level0_graph_ms",
-                                             "level3_graph_ms")
+                                             "level3_graph_ms", "tp4_ms", "tp4_library_ms",
+                                             "tp4_bound_ms", "loop_max_abs_err",
+                                             "loop_max_rel_err", "loop_shapes")
                            if k in r}})
         k = kernels[-1]
         if "kernel_ms" in k:

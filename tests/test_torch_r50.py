@@ -45,13 +45,20 @@ def _t(x):
 
 
 @pytest.fixture(scope="module")
-def pair():
+def initial():
+    """The JAX model and its tree as initialised, before the perturbation."""
     cfg = tiny_test_config()
     assert cfg.backbone.name == "resnet50" and cfg.mask_head.enabled
     inputs = detection_inputs(0)
     targets = detection_targets(2, G=cfg.data.max_insts)
     jm = JaxDETR(cfg)
-    params = perturb(jax_train_init(jm, inputs, targets), scale=0.02)
+    return cfg, inputs, targets, jm, jax_train_init(jm, inputs, targets)
+
+
+@pytest.fixture(scope="module")
+def pair(initial):
+    cfg, inputs, targets, jm, params = initial
+    params = perturb(params, scale=0.02)
     model = build_model(cfg, "cpu", seed=0)
     convert.load_jax_params(model, params)
     return cfg, inputs, targets, jm, params, model
@@ -170,6 +177,29 @@ def test_r50_bridge_round_trip_through_convert_checkpoint(pair):
     for path, leaf in jax.tree_util.tree_leaves_with_path(params):
         np.testing.assert_array_equal(np.asarray(back_leaves[path]), leaf,
                                       err_msg=jax.tree_util.keystr(path))
+
+
+def test_r50_random_init_matches_jax_distributions(initial):
+    """A model the port builds from a seed (what a run from scratch, as the
+    fixture AP run, starts from) draws every leaf from JAX's distribution:
+    constant leaves (norms, biases, FrozenBN) equal JAX's, and every other
+    leaf of 16 or more entries has its standard deviation within 0.8-1.25x
+    of JAX's init (different generators, so the values differ)."""
+    cfg, _, _, _, params = initial
+    sd = build_model(cfg, "cpu", seed=0).state_dict()
+    got, report = convert_checkpoint(sd, copy.deepcopy(jax.tree.map(np.zeros_like, params)))
+    assert report["missing_target"] == [] and report["unused_source"] == []
+    got_leaves = dict(jax.tree_util.tree_leaves_with_path(got))
+    compared = 0
+    for path, want in jax.tree_util.tree_leaves_with_path(params):
+        name, g = jax.tree_util.keystr(path), np.asarray(got_leaves[path])
+        if np.ptp(want) == 0:
+            np.testing.assert_array_equal(g, want, err_msg=name)
+        elif want.size >= 16:
+            ratio = g.std() / want.std()
+            assert 0.8 < ratio < 1.25, f"{name}: std {g.std():.4g} against {want.std():.4g}"
+            compared += 1
+    assert compared > 100
 
 
 def test_r50_optimizer_groups_match_classify_param(pair):

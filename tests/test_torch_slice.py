@@ -97,9 +97,11 @@ def test_bridge_round_trip_through_convert_checkpoint(pair):
 def test_port_runs_without_jax():
     """Importing the port, serving a request and taking a train step with
     the ViT and the R50 backbones (with R50 also the instance masks and
-    REC/RES), and running the three labs (`tools/`) at a tiny size leave
-    jax, flax and the JAX package (`uninext_tpu`, `uninext_tpu.*`) out of
-    sys.modules: the H100 machine runs the port without them."""
+    REC/RES), running the three labs (`tools/`), and the training loop with
+    its data pipeline, checkpoints and COCO evaluation, at a tiny size,
+    leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
+    `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
+    without them."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -176,12 +178,31 @@ def test_port_runs_without_jax():
             out, ms = probe(device="cpu", r=64, k=4, tiles=8)
             rows = 8 * 8 if key != "3" else 8 * 4 * 8
             assert out.shape == (rows, 128) and torch.isfinite(out).all() and ms is None
+        # the training loop and evaluation through the fixture AP tool at
+        # tiny_test_config: mini-COCO, the LSJ mapper and the loader, 2
+        # Trainer steps with masks and the final checkpoint, one evaluated
+        # image (bbox and segm, the C++ matcher)
+        import json
+        import os
+        import tempfile
+        from uninext_tpu_torch.evaluation import fast_eval
+        from uninext_tpu_torch.tools import ap_check
+        with tempfile.TemporaryDirectory() as root:
+            res = ap_check.main(["--steps", "2", "--n-train", "2", "--n-val", "1",
+                                 "--device", "cpu", "--out", root + "/ap.json"])
+            assert json.load(open(root + "/ap.json")) == json.loads(json.dumps(res))
+        assert res["step_ms"]["steps"] == 2 and res["eval_seconds_per_image"]["images"] == 2
+        assert all(res[k][m] is not None for k in ("bbox", "segm") for m in ("AP", "AP50"))
+        assert any(m.startswith("libcocoeval") for m in os.listdir(fast_eval.BUILD_DIR))
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "flax", "uninext_tpu"))
+                     if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"))
         print("JAX_MODULES", bad)
     """)
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
+    # one OpenMP thread: the child runs beside other pytest workers on the
+    # same cores (tests/torch_port_common.py:one_torch_thread)
+    env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

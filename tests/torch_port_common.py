@@ -9,6 +9,7 @@ framework's RNG is involved.
 import dataclasses
 
 import numpy as np
+import pytest
 
 from uninext_tpu_torch.config import BackboneConfig, tiny_test_config
 
@@ -150,10 +151,12 @@ def dn_noise(key, B, single_pad, groups=5):
     return torch.from_numpy(np.array(sign)), torch.from_numpy(np.array(part))
 
 
-def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key):
+def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key,
+                       task="detection", masks=None):
     """jax.value_and_grad of the weighted total of `model.apply(...,
-    train=True)` (detection, no mask losses), with the DN key pinned to
-    `dn_key`. Returns (total, losses, grads of params["params"])."""
+    train=True)` for `task`, with the mask losses when `masks` (B, G, H/4,
+    W/4) is given, and the DN key pinned to `dn_key`. Returns (total,
+    losses, grads of params["params"])."""
     import jax
 
     import uninext_tpu.models.detr as jdetr
@@ -166,11 +169,14 @@ def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key):
 
     monkeypatch.setattr(jdetr, "prepare_dn_static", pinned)
     boxes, valid, pm = targets
-    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm, "has_masks": False}
+    tgt = {"boxes": boxes, "valid": valid, "positive_map": pm,
+           "has_masks": masks is not None}
+    if masks is not None:
+        tgt["masks"] = masks
     weights = loss_weights(cfg)
 
     def loss_fn(p):
-        losses = jm.apply({"params": p}, *inputs, targets=tgt, train=True,
+        losses = jm.apply({"params": p}, *inputs, task=task, targets=tgt, train=True,
                           rngs={"dn": jax.random.PRNGKey(0)})
         return weighted_total(losses, weights), losses
 
@@ -202,3 +208,17 @@ def bridge_sources(params):
 
     convert.fill_model(Recorder(), "", lv, "")
     return sources
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for a module's tests, restored after.
+    The tests run beside other pytest workers on the same cores, where
+    torch's default of one thread per core made the small steps of the
+    training-loop tests 50-80x slower than alone."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

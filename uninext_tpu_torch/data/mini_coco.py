@@ -1,0 +1,180 @@
+"""A copy of `uninext_tpu/data/mini_coco.py`, with its COCO and RefCOCO
+fixtures (the port imports nothing of the JAX package).
+
+Mini COCO-format dataset generator: real JPEGs + real instances json.
+
+The end-to-end data-pipeline and AP checks need no download: this
+generator it writes genuine COCO
+`instances_*.json` files (images / annotations with bbox + polygon
+segmentation + area + iscrowd / categories, non-contiguous category ids
+like the real thing) and real JPEG files, with visually learnable
+categories (colored geometric shapes on textured backgrounds). Everything
+downstream — PIL decode, mapper resize/normalize, prompts, training,
+COCO evaluation — runs exactly the path real COCO data would.
+
+Reference anchor: datasets/coco layout expected by
+detectron2/data/datasets/coco.py:load_coco_json.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+from typing import Dict, List, Tuple
+
+import numpy as np
+from PIL import Image, ImageDraw
+
+CATEGORIES = [
+    {"id": 1, "name": "red square", "supercategory": "shape"},
+    {"id": 3, "name": "green disk", "supercategory": "shape"},
+    {"id": 7, "name": "blue triangle", "supercategory": "shape"},
+]
+
+
+def _polygon(cat: str, cx: float, cy: float, r: float,
+             rng: np.random.RandomState) -> List[float]:
+    if cat == "red square":
+        pts = [(cx - r, cy - r), (cx + r, cy - r),
+               (cx + r, cy + r), (cx - r, cy + r)]
+    elif cat == "green disk":
+        pts = [(cx + r * math.cos(2 * math.pi * k / 16),
+                cy + r * math.sin(2 * math.pi * k / 16)) for k in range(16)]
+    else:  # blue triangle
+        a0 = rng.uniform(0, 2 * math.pi)
+        pts = [(cx + r * math.cos(a0 + 2 * math.pi * k / 3),
+                cy + r * math.sin(a0 + 2 * math.pi * k / 3))
+               for k in range(3)]
+    return [float(v) for p in pts for v in p]
+
+
+_COLORS = {"red square": (210, 40, 35), "green disk": (40, 180, 60),
+           "blue triangle": (45, 70, 220)}
+
+
+def make_mini_coco(root: str, n_train: int = 32, n_val: int = 12,
+                   seed: int = 0, img_size: Tuple[int, int] = (280, 360),
+                   max_objects: int = 3) -> Dict[str, str]:
+    """Writes root/{train,val}/*.jpg + root/instances_{train,val}.json.
+    Returns {"train_json": ..., "val_json": ..., "train_root": ...,
+    "val_root": ...}."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for split, n in (("train", n_train), ("val", n_val)):
+        img_dir = os.path.join(root, split)
+        os.makedirs(img_dir, exist_ok=True)
+        images, annotations = [], []
+        aid = 1
+        for i in range(n):
+            h = int(rng.randint(img_size[0] - 40, img_size[0] + 40))
+            w = int(rng.randint(img_size[1] - 40, img_size[1] + 40))
+            # textured background (noise + gradient) so nothing is trivially
+            # segmentable by a constant-color rule
+            yy, xx = np.mgrid[0:h, 0:w]
+            bg = (90 + 40 * np.sin(xx / 37.0) + 30 * np.cos(yy / 23.0)
+                  + rng.randn(h, w) * 12)
+            img = np.stack([bg + rng.randint(-20, 20)] * 3, -1)
+            img = np.clip(img, 0, 255).astype(np.uint8)
+            pil = Image.fromarray(img)
+            draw = ImageDraw.Draw(pil)
+            for _ in range(int(rng.randint(1, max_objects + 1))):
+                cat = CATEGORIES[rng.randint(len(CATEGORIES))]
+                r = float(rng.uniform(22, 55))
+                cx = float(rng.uniform(r + 2, w - r - 2))
+                cy = float(rng.uniform(r + 2, h - r - 2))
+                poly = _polygon(cat["name"], cx, cy, r, rng)
+                base = np.array(_COLORS[cat["name"]], np.float32)
+                col = tuple(int(c) for c in np.clip(
+                    base + rng.randn(3) * 12, 0, 255))
+                draw.polygon(list(zip(poly[0::2], poly[1::2])), fill=col)
+                xs, ys = poly[0::2], poly[1::2]
+                x0, y0 = max(min(xs), 0.0), max(min(ys), 0.0)
+                x1, y1 = min(max(xs), w), min(max(ys), h)
+                annotations.append({
+                    "id": aid, "image_id": i,
+                    "category_id": cat["id"],
+                    "bbox": [x0, y0, x1 - x0, y1 - y0],
+                    "segmentation": [poly],
+                    "area": float((x1 - x0) * (y1 - y0)),
+                    "iscrowd": 0,
+                })
+                aid += 1
+            fn = f"{i:06d}.jpg"
+            pil.save(os.path.join(img_dir, fn), quality=92)
+            images.append({"id": i, "file_name": fn,
+                           "height": h, "width": w})
+        js = {"info": {"description": f"mini-coco {split}"},
+              "images": images, "annotations": annotations,
+              "categories": CATEGORIES}
+        jpath = os.path.join(root, f"instances_{split}.json")
+        with open(jpath, "w") as f:
+            json.dump(js, f)
+        out[f"{split}_json"] = jpath
+        out[f"{split}_root"] = img_dir
+    return out
+
+
+def make_mini_refcoco(root: str, n_train: int = 48, n_val: int = 16,
+                      seed: int = 0, img_size: Tuple[int, int] = (280, 360)
+                      ) -> Dict[str, str]:
+    """RefCOCO-format mini dataset (the d2-converted per-expression schema
+    of data/coco.py:load_refcoco_json): images contain 2-3 distinct-category
+    shapes; each record grounds ONE of them with an expression built from
+    its category and image side ("the red square on the left"). Category
+    alone is ambiguous only across images, never within one, so expressions
+    are uniquely resolvable."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    img_id = 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        img_dir = os.path.join(root, f"ref_{split}")
+        os.makedirs(img_dir, exist_ok=True)
+        records = []
+        for _ in range(n):
+            img_id += 1
+            h = int(rng.randint(img_size[0] - 40, img_size[0] + 40))
+            w = int(rng.randint(img_size[1] - 40, img_size[1] + 40))
+            yy, xx = np.mgrid[0:h, 0:w]
+            bg = (90 + 40 * np.sin(xx / 37.0) + 30 * np.cos(yy / 23.0)
+                  + rng.randn(h, w) * 12)
+            pil = Image.fromarray(np.clip(
+                np.stack([bg] * 3, -1), 0, 255).astype(np.uint8))
+            draw = ImageDraw.Draw(pil)
+            k = int(rng.randint(2, len(CATEGORIES) + 1))
+            picked = rng.choice(len(CATEGORIES), size=k, replace=False)
+            objs = []
+            for ci in picked:
+                cat = CATEGORIES[ci]
+                r = float(rng.uniform(26, 50))
+                cx = float(rng.uniform(r + 2, w - r - 2))
+                cy = float(rng.uniform(r + 2, h - r - 2))
+                poly = _polygon(cat["name"], cx, cy, r, rng)
+                base = np.array(_COLORS[cat["name"]], np.float32)
+                col = tuple(int(c) for c in np.clip(
+                    base + rng.randn(3) * 12, 0, 255))
+                draw.polygon(list(zip(poly[0::2], poly[1::2])), fill=col)
+                objs.append((cat, cx, cy, poly))
+            fn = f"{img_id:06d}.jpg"
+            pil.save(os.path.join(img_dir, fn), quality=92)
+            for cat, cx, cy, poly in objs:
+                side = ("left" if cx < w / 3 else
+                        "right" if cx > 2 * w / 3 else "middle")
+                xs, ys = poly[0::2], poly[1::2]
+                x0, y0 = max(min(xs), 0.0), max(min(ys), 0.0)
+                x1, y1 = min(max(xs), float(w)), min(max(ys), float(h))
+                records.append({
+                    "file_name": fn, "image_id": img_id,
+                    "height": h, "width": w,
+                    "annotations": [{
+                        "bbox": [x0, y0, x1 - x0, y1 - y0],
+                        "category_id": 0,
+                        "segmentation": [poly]}],
+                    "expressions": [f"the {cat['name']} on the {side}",
+                                    f"{cat['name']}"],
+                })
+        jpath = os.path.join(root, f"refcoco_{split}.json")
+        with open(jpath, "w") as f:
+            json.dump(records, f)
+        out[f"{split}_json"] = jpath
+        out[f"{split}_root"] = img_dir
+    return out

@@ -1,0 +1,121 @@
+"""Checkpoints of the train state with `torch.save`, mirroring
+`uninext_tpu/engine/checkpoint.py:CheckpointManager` (orbax there): save and
+resume the model, AdamW's moments and counts, the micro-step and the state
+of the generator of the step's random numbers, with detectron2's
+`resume_or_load` semantics.
+
+One file per saved step, `<directory>/ckpt_<step>.pt`, written whole and
+then renamed into place; the oldest beyond `max_to_keep` are deleted. Not
+ported: the stage hand-off `load_stage_weights` and its 4-channel
+inflation (they wait for SOT/VOS).
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import List, Optional, Tuple
+
+import torch
+
+from .train import TrainState
+
+_NAME = re.compile(r"ckpt_(\d+)\.pt$")
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, max_to_keep: int = 5):
+        self.directory = os.path.abspath(directory)
+        self.max_to_keep = max_to_keep
+        os.makedirs(self.directory, exist_ok=True)
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"ckpt_{step:08d}.pt")
+
+    def all_steps(self) -> List[int]:
+        return sorted(int(m.group(1)) for m in map(_NAME.search, os.listdir(self.directory))
+                      if m)
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def save(self, step: int, state: TrainState) -> None:
+        """Save `state` as step `step`, once per step: hooks may fire a
+        periodic, a final and a best save at one step. Saves fall on update
+        boundaries (the hooks' periods are whole updates), where no summed
+        gradient is pending."""
+        if step in self.all_steps():
+            return
+        opt = state.optimizer
+        if opt.accumulating:
+            raise ValueError(f"checkpoint at micro-step {step}: {opt.mini_step} of "
+                             f"{opt.accum} micro-steps of an update are pending")
+        payload = {
+            "model": state.model.state_dict(),
+            "optimizer": {"mu": opt.mu, "nu": opt.nu, "count": opt.count},
+            "step": state.step,
+            "generator": state.generator.get_state(),
+        }
+        tmp = self.path(step) + f".{os.getpid()}.tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, self.path(step))
+        for old in self.all_steps()[:-self.max_to_keep]:
+            os.remove(self.path(old))
+
+    def _load(self, step: Optional[int]):
+        step = self.latest_step() if step is None else step
+        if step is None:
+            return None
+        return torch.load(self.path(step), map_location="cpu", weights_only=True)
+
+    @torch.no_grad()
+    def restore(self, state: TrainState, step: Optional[int] = None
+                ) -> Tuple[TrainState, bool]:
+        """Load a saved step (the latest by default) into `state` in place."""
+        ckpt = self._load(step)
+        if ckpt is None:
+            return state, False
+        state.model.load_state_dict(ckpt["model"])
+        opt, saved = state.optimizer, ckpt["optimizer"]
+        for g in opt.params:
+            torch._foreach_copy_(opt.mu[g], saved["mu"][g])
+            torch._foreach_copy_(opt.nu[g], saved["nu"][g])
+        opt.count, opt.mini_step = saved["count"], 0
+        state.model.zero_grad(set_to_none=True)
+        state.step = ckpt["step"]
+        state.generator.set_state(ckpt["generator"])
+        return state, True
+
+    def resume_or_load(self, state: TrainState, init_weights_path: Optional[str] = None
+                       ) -> Tuple[TrainState, bool]:
+        """Resume the whole state from the latest checkpoint if there is
+        one; else load the model's weights from `init_weights_path` (a
+        state dict, or a checkpoint of this manager), leaving the optimizer
+        and the step as they are."""
+        state, resumed = self.restore(state)
+        if resumed:
+            return state, True
+        if init_weights_path and os.path.exists(init_weights_path):
+            sd = torch.load(init_weights_path, map_location="cpu", weights_only=True)
+            state.model.load_state_dict(sd.get("model", sd))
+        return state, False
+
+
+def state_differences(a: TrainState, b: TrainState) -> List[str]:
+    """What differs between two train states, by name: parameters and
+    buffers, both Adam moments, the optimizer's counts, the step and the
+    generator's state; [] when they are bit-equal."""
+    sb = b.model.state_dict()
+    diff = [k for k, v in a.model.state_dict().items() if not torch.equal(v, sb[k])]
+    oa, ob = a.optimizer, b.optimizer
+    for g in oa.params:
+        for i, n in enumerate(oa.names[g]):
+            diff += [f"{m} {n}" for m, x, y in (("mu", oa.mu, ob.mu), ("nu", oa.nu, ob.nu))
+                     if not torch.equal(x[g][i], y[g][i])]
+    for what, x, y in (("count", oa.count, ob.count),
+                       ("mini_step", oa.mini_step, ob.mini_step), ("step", a.step, b.step)):
+        if x != y:
+            diff.append(f"{what} {x} != {y}")
+    if not torch.equal(a.generator.get_state(), b.generator.get_state()):
+        diff.append("generator")
+    return diff

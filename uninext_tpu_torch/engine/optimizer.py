@@ -19,10 +19,21 @@ the backbone group and train, as in the JAX package. Adam's eps sits outside the
 gradients are scaled by grad_clip / norm when the global norm is at least
 grad_clip, with nothing added to the norm (`clip_grad_norm_` adds 1e-6).
 Updates run as `torch._foreach_*` ops per group, in place.
+
+With `grad_accum_steps` k > 1 the optimizer follows `optax.MultiSteps`:
+`step()` is called after every micro-step's backward, the gradients sum
+in the parameters' `.grad` (the caller zeroes them only after an update,
+`accumulating`), and every k-th call divides them by k, so the update sees
+their mean, then clips and applies AdamW once. Adam's count and the
+schedule advance once per update. `adam_mu_dtype` "bfloat16" keeps the
+first moment in bf16, as optax's `mu_dtype`: each update forms the new
+moment in fp32 from the stored one, uses it, and stores it rounded; the
+stored moment decays by b1 rounded to bf16 (0.8984375), as JAX computes it
+(the Python constant takes the moment's dtype).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -84,10 +95,11 @@ class AdamW:
                  path_of: Callable[[str], str] = convert.jax_module_path):
         """`path_of` maps a parameter name to the JAX path its group is
         classified by (the bridge's mapping for `UninextDETR`)."""
-        if cfg.grad_accum_steps != 1 or cfg.adam_mu_dtype is not None:
-            raise NotImplementedError("gradient accumulation and a low-precision "
-                                      "first moment are not ported yet")
+        if cfg.adam_mu_dtype not in (None, "bfloat16", "float32"):
+            raise ValueError(f"adam_mu_dtype {cfg.adam_mu_dtype!r}")
         self.cfg = cfg
+        self.accum = max(1, cfg.grad_accum_steps)
+        self.mini_step = 0                      # micro-steps since the last update
         self.b1, self.b2, self.eps = b1, b2, eps
         self.lr = group_learning_rates(cfg)
         self.schedule = lr_schedule(cfg)
@@ -97,15 +109,31 @@ class AdamW:
             g = classify_param(path_of(name))
             self.params.setdefault(g, []).append(p)
             self.names.setdefault(g, []).append(name)
-        self.mu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.params.items()}
+        mu_dtype = torch.bfloat16 if cfg.adam_mu_dtype == "bfloat16" else None
+        self.mu = {g: [torch.zeros_like(p, dtype=mu_dtype) for p in ps]
+                   for g, ps in self.params.items()}
         self.nu = {g: [torch.zeros_like(p) for p in ps] for g, ps in self.params.items()}
         self.count = 0
 
+    @property
+    def accumulating(self) -> bool:
+        """True between the micro-steps of one update: the next backward
+        adds to `.grad` instead of replacing it."""
+        return self.mini_step > 0
+
     @torch.no_grad()
-    def step(self) -> torch.Tensor:
+    def step(self) -> Optional[torch.Tensor]:
+        """One micro-step: None until the k-th, which updates the parameters
+        and returns the global norm of the mean gradient before the clip."""
+        self.mini_step += 1
+        if self.mini_step < self.accum:
+            return None
+        self.mini_step = 0
         all_params = [p for ps in self.params.values() for p in ps]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in all_params]
+        if self.accum > 1:
+            torch._foreach_div_(grads, float(self.accum))
         norm = torch.linalg.vector_norm(torch.stack(
             torch._foreach_norm(grads, 2.0))).float()
         # optax's select, on the device: below the limit g / 1 * 1 == g exactly
@@ -126,7 +154,16 @@ class AdamW:
                 continue
             gs = [by_param[id(p)] for p in ps]
             mu, nu = self.mu[g], self.nu[g]
-            torch._foreach_mul_(mu, self.b1)
+            stored = None
+            if mu[0].dtype != ps[0].dtype:
+                # a low-precision first moment, as JAX computes optax's: b1 is
+                # rounded to that dtype (0.8984375 in bf16), the new moment
+                # is formed in fp32
+                stored = mu
+                mu = [m.to(p.dtype) for m, p in zip(stored, ps)]
+                torch._foreach_mul_(mu, float(torch.tensor(self.b1, dtype=stored[0].dtype)))
+            else:
+                torch._foreach_mul_(mu, self.b1)
             torch._foreach_add_(mu, torch._foreach_mul(gs, 1 - self.b1))
             torch._foreach_mul_(nu, self.b2)
             torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(gs, gs),
@@ -139,6 +176,8 @@ class AdamW:
             torch._foreach_add_(upd, torch._foreach_mul(ps, self.cfg.weight_decay))
             torch._foreach_mul_(upd, float(f32(-lr) * f32(sched)))
             torch._foreach_add_(ps, upd)
+            if stored is not None:
+                torch._foreach_copy_(stored, mu)
         return norm
 
 

@@ -1,9 +1,9 @@
-"""The detection train step, mirroring `uninext_tpu/engine/train.py`:
-batch -> loss dict -> weighted sum -> backward -> global-norm clip ->
-per-group AdamW. Compute runs in the config's dtype (bf16) with fp32
-parameters and optimizer state, as in the JAX package; no loss scaling.
-
-`Trainer`, hooks, checkpointing and the data loader are not ported yet.
+"""The train step, mirroring `uninext_tpu/engine/train.py`: batch -> loss
+dict (detection or grounding, with the mask losses when the targets carry
+masks) -> weighted sum -> backward -> global-norm clip -> per-group AdamW,
+once every `grad_accum_steps` micro-steps. Compute runs in the config's
+dtype (bf16) with fp32 parameters and optimizer state, as in the JAX
+package; no loss scaling. The loop around it is `engine/trainer.py`.
 """
 from __future__ import annotations
 
@@ -47,6 +47,7 @@ class TrainState:
     model: UninextDETR
     optimizer: AdamW
     generator: torch.Generator      # DN box noise and drop-path masks
+    step: int = 0                   # micro-steps taken
 
 
 def build_train_state(cfg: UninextConfig, device="cuda", seed: int = 0
@@ -62,28 +63,37 @@ def build_train_state(cfg: UninextConfig, device="cuda", seed: int = 0
 
 def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
                    generator: Optional[torch.Generator] = None,
-                   dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+                   dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   task: str = "detection", accumulate: bool = False):
     """Forward in train mode, the weighted total and its backward: the
-    gradients land in the parameters' `.grad`. Returns (total, losses)."""
-    model.zero_grad(set_to_none=True)
+    gradients land in the parameters' `.grad`, replacing what is there
+    unless `accumulate`. Returns (total, losses)."""
+    if not accumulate:
+        model.zero_grad(set_to_none=True)
     losses = model.forward_train(batch["images"], batch["img_mask"],
                                  batch["image_sizes"], batch["text_ids"],
                                  batch["text_mask"], batch["targets"],
-                                 generator=generator, dn_noise=dn_noise)
+                                 generator=generator, dn_noise=dn_noise, task=task)
     total = weighted_total(losses, weights)
     total.backward()
     return total, losses
 
 
-def train_step(state: TrainState, batch: Dict) -> Dict[str, torch.Tensor]:
-    """One optimizer update on `batch` (images (B, H, W, 3), img_mask,
+def train_step(state: TrainState, batch: Dict, task: str = "detection"
+               ) -> Dict[str, torch.Tensor]:
+    """One micro-step on `batch` (images (B, H, W, 3), img_mask,
     image_sizes, text_ids, text_mask, targets as `forward_train` takes
-    them). Returns the total, every loss and the grad norm before the clip,
+    them); the optimizer updates on every `grad_accum_steps`-th. Returns the
+    total and every loss, and on an update the grad norm before the clip,
     as tensors on the device. The step reads to the host only the encoder
     matching costs (Hungarian), simOTA's fix-up checks and the clip
     decision."""
     weights = loss_weights(state.model.cfg)
-    total, losses = loss_and_grads(state.model, batch, weights, state.generator)
+    total, losses = loss_and_grads(state.model, batch, weights, state.generator,
+                                   task=task, accumulate=state.optimizer.accumulating)
     grad_norm = state.optimizer.step()
-    return {"total_loss": total.detach(), "grad_norm": grad_norm,
-            **{k: v.detach() for k, v in losses.items()}}
+    state.step += 1
+    out = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+    if grad_norm is not None:
+        out["grad_norm"] = grad_norm
+    return out

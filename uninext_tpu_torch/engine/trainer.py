@@ -1,0 +1,113 @@
+"""The training loop, mirroring `uninext_tpu/engine/trainer.py:Trainer`
+(detectron2's DefaultTrainer with its hooks): batches from a loader,
+`engine/train.py:train_step` on the card, hooks around every step
+(`engine/hooks.py`: timer, writers, checkpoints, learning rate, memory,
+profiler, evaluation) and `resume_or_load`.
+
+The JAX trainer's persistent compilation cache, device mesh, chunked
+steps (a scan of jitted steps) and TensorBoard writer do not carry over:
+each micro-step here is one eager `train_step`, and metrics go to the
+terminal and `metrics.json`. `cfg.solver.max_iter`, the schedule and every hook
+period count optimizer updates; with `grad_accum_steps` k the loop runs
+`max_iter * k` micro-steps and `state.step` counts micro-steps, as in the
+JAX package.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import UninextConfig
+from .checkpoint import CheckpointManager
+from .events import EventStorage, JSONWriter, TerminalWriter
+from .hooks import default_hooks
+from .optimizer import lr_schedule
+from .train import build_train_state, train_step
+
+
+def to_device(batch: Dict, device: torch.device, has_masks: bool) -> Dict:
+    """A collated numpy batch (`data/loader.py:collate`) as tensors on
+    `device`, text ids as int64, with `targets["has_masks"]` set. Host-side
+    routing keys ("__task__") stay behind."""
+    mv = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    out = {k: mv(v) for k, v in batch.items() if k not in ("targets", "__task__")}
+    out["text_ids"] = out["text_ids"].long()
+    out["targets"] = {k: mv(v) for k, v in batch["targets"].items()}
+    out["targets"]["has_masks"] = has_masks and "masks" in batch["targets"]
+    return out
+
+
+class Trainer:
+    def __init__(self, cfg: UninextConfig, loader: Iterator,
+                 output_dir: str = "./output", task: str = "detection",
+                 has_masks: bool = True, device="cuda", seed: int = 0,
+                 eval_fn: Optional[Callable] = None,
+                 eval_period: int = 5000,
+                 log_period: int = 20,
+                 profile_iters: Optional[tuple] = None,
+                 extra_hooks: Optional[List] = None):
+        """`loader` yields collated batches (a "__task__" key routes a batch
+        to its task, else `task`). The model gets random weights from
+        `seed` on `device` (the card unless the caller asks for another).
+        `eval_fn(model) -> dict` runs every `eval_period` updates."""
+        self.cfg = cfg
+        self.loader = loader
+        self.task = task
+        self.has_masks = has_masks
+        self.device = torch.device(device)
+        self.accum = max(1, cfg.solver.grad_accum_steps)
+        self.storage = EventStorage()
+        self.writers = [TerminalWriter(cfg.solver.max_iter * self.accum),
+                        JSONWriter(f"{output_dir}/metrics.json")]
+        self.ckpt = CheckpointManager(f"{output_dir}/checkpoints")
+        self._pending_first = next(loader)
+        self.state = build_train_state(cfg, self.device, seed)
+        self.model = self.state.model
+        self.hooks = default_hooks(
+            cfg.solver, log_period=log_period, eval_fn=eval_fn,
+            eval_period=eval_period, profile_iters=profile_iters,
+            profile_dir=f"{output_dir}/profile",
+            schedule_fn=lr_schedule(cfg.solver), accum_steps=self.accum)
+        if extra_hooks:
+            self.hooks.extend(extra_hooks)
+
+    def resume_or_load(self, init_weights: Optional[str] = None) -> bool:
+        self.state, resumed = self.ckpt.resume_or_load(self.state, init_weights)
+        return resumed
+
+    def train(self):
+        """Micro-steps from `state.step` to `max_iter * k`. Each step's
+        `time` is host time from its start to the end of its device work,
+        without the wait for the next batch."""
+        total = self.cfg.solver.max_iter * self.accum
+        batch = self._pending_first
+        data_iter = iter(self.loader)
+
+        def next_batch():
+            nonlocal data_iter
+            try:
+                return next(data_iter)
+            except StopIteration:
+                data_iter = iter(self.loader)
+                return next(data_iter)
+
+        for h in self.hooks:
+            h.before_train(self)
+        for it in range(self.state.step, total):
+            self.storage.iter = it
+            for h in self.hooks:
+                h.before_step(self)
+            t0 = time.perf_counter()
+            metrics = train_step(self.state, to_device(batch, self.device, self.has_masks),
+                                 batch.get("__task__", self.task))
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            metrics["time"] = time.perf_counter() - t0
+            batch = next_batch()        # mapped ahead by the loader's threads
+            for h in self.hooks:
+                h.after_step(self, metrics)
+        for h in self.hooks:
+            h.after_train(self)

@@ -1,5 +1,7 @@
-"""Set-prediction losses, mirroring `uninext_tpu/models/criterion.py` (the
-detection losses; the mask losses wait with the mask head).
+"""Set-prediction losses, mirroring `uninext_tpu/models/criterion.py`: the
+token-level focal loss, L1, GIoU and the IoU branch, and the CondInst mask
+losses (focal and dice). BoxInst's box-supervised mask losses
+(`loss_masks_boxinst` there) are not ported.
 
 Targets are padded to (B, G) with a validity mask and a matching is a
 dense per-query map q2g (B, Q) with -1 for unmatched, so every loss is a
@@ -72,3 +74,26 @@ def loss_boxes(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor,
         bce = sigmoid_ce(pred_boxious[..., 0].float(), iou_tgt)
         out["loss_boxiou"] = (bce * matched).sum() / matched.sum().clamp(min=1.0)
     return out
+
+
+def dice_loss_elem(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-instance dice loss over the last axis: logits, targets (..., P)."""
+    probs = logits.sigmoid()
+    num = 2 * (probs * targets).sum(-1)
+    den = probs.sum(-1) + targets.sum(-1)
+    return 1 - (num + 1) / (den + 1)
+
+
+def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
+               sel_valid: torch.Tensor, num_boxes: torch.Tensor,
+               cfg: LossConfig) -> Dict[str, torch.Tensor]:
+    """Focal (the pixel mean per instance) and dice over the selected
+    instances: pred_masks (B, N, H, W) logits, target_masks (B, N, H, W) in
+    {0, 1}, sel_valid (B, N); each summed and divided by num_boxes."""
+    B, N = pred_masks.shape[:2]
+    pred = pred_masks.reshape(B, N, -1).float()
+    tgt = target_masks.reshape(B, N, -1).float()
+    v = sel_valid.float()
+    focal = sigmoid_focal_loss(pred, tgt, cfg.focal_alpha, cfg.focal_gamma).mean(-1) * v
+    dice = dice_loss_elem(pred, tgt) * v
+    return {"loss_mask": focal.sum() / num_boxes, "loss_dice": dice.sum() / num_boxes}

@@ -9,7 +9,8 @@ losses (`forward_train`, without the mask losses).
     [-> masks: the dynamic mask head on the encoder memory, for the queries
         a caller selected (`models/postprocess.py`)]
     [-> training: DN queries, per-layer simOTA / encoder Hungarian
-        matching, focal, L1, GIoU and IoU-branch losses]
+        matching, focal, L1, GIoU and IoU-branch losses, and the dynamic
+        masks of the matched queries against the gt masks (focal, dice)]
 
 Public tensors keep the JAX layouts: images (B, H, W, 3) NHWC, normalised
 and padded to a multiple of 32; `img_mask` (B, H, W) True for padding.
@@ -27,8 +28,8 @@ Random numbers of training (DN box noise, drop-path masks) come from an
 explicit `torch.Generator`, or the DN noise from the caller; the JAX
 package's `jax.random` stream is not reproduced.
 
-Not ported yet: the ConvNeXt backbone, the mask and grounding losses,
-reid, SOT/VOS templates and video training.
+Not ported yet: the ConvNeXt backbone, BoxInst's mask losses, reid,
+SOT/VOS templates and video training.
 """
 from __future__ import annotations
 
@@ -50,6 +51,7 @@ from .layers import MLP, Conv2d, FeatureResizer, GroupNorm, Linear
 from .mask_head import MaskHeadSmallConv, dynamic_mask_forward, num_gen_params
 from .matcher import hungarian_match, ota_cost_and_iou, simota_match, vl_cost_matrix
 from .position_encoding import position_embedding_sine
+from .postprocess import take_queries
 from .resnet import ResNet
 from .transformer import UninextTransformer
 from .vit import ViT
@@ -83,6 +85,17 @@ def build_dn_attn_mask(num_queries: int, single_pad: int = DN_SINGLE_PAD,
         m[lo:hi, hi:pad] = True
         m[lo:hi, :lo] = True
     return m
+
+
+def select_matched(q2g: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first `n` matched queries of each image, in ascending query order,
+    then unmatched ones: q2g (B, Q) -> sel_q (B, min(n, Q)) and sel_valid
+    (B, min(n, Q)), True where the query is matched."""
+    Q = q2g.shape[1]
+    ar = torch.arange(Q, device=q2g.device)
+    key = torch.where(q2g >= 0, ar, Q + ar)
+    sel_q = torch.argsort(key, dim=-1)[:, :n]
+    return sel_q, torch.gather(q2g, 1, sel_q) >= 0
 
 
 def prepare_dn_static(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
@@ -324,33 +337,40 @@ class UninextDETR(nn.Module):
         whose centres scaled by image_sizes' (w, h) place the relative
         coordinates. The mask features come from the encoder memory's first
         three levels."""
+        params = self.detr.controller(hs_sel)
+        centers = base_ref_sel[..., :2] * image_sizes.flip(-1)[:, None].float()
+        return dynamic_mask_forward(self._mask_feats(memory, spatial_shapes), centers,
+                                    params, self.cfg.mask_head)
+
+    def _mask_feats(self, memory: torch.Tensor,
+                    spatial_shapes: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+        """The mask head on the encoder memory's first three levels: fp32
+        mask features (B, H/8, W/8, C // 32)."""
         B, d = memory.shape[0], self.cfg.transformer.d_model
         feats, start = [], 0
         for h, w in spatial_shapes[:3]:
             feats.append(memory[:, start:start + h * w].reshape(B, h, w, d))
             start += h * w
-        mask_feats = self.detr.mask_head(feats)
-        params = self.detr.controller(hs_sel)
-        centers = base_ref_sel[..., :2] * image_sizes.flip(-1)[:, None].float()
-        return dynamic_mask_forward(mask_feats.float(), centers, params,
-                                    self.cfg.mask_head)
+        return self.detr.mask_head(feats).float()
 
 
     def forward_train(self, images: torch.Tensor, img_mask: torch.Tensor,
                       image_sizes: torch.Tensor, text_ids: torch.Tensor,
                       text_mask: torch.Tensor, targets: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator] = None,
-                      dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                      ) -> Dict[str, torch.Tensor]:
-        """Detection training forward: the loss dict of
-        `uninext_tpu/models/detr.py:__call__(..., train=True)`.
+                      dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                      task: str = "detection") -> Dict[str, torch.Tensor]:
+        """Training forward: the loss dict of
+        `uninext_tpu/models/detr.py:__call__(..., train=True)` for `task`
+        "detection" (a category prompt) or "grounding" (an expression).
 
         targets: boxes (B, G, 4) cxcywh normalised, valid (B, G) bool,
-        positive_map (B, G, T) bool, has_masks False (the mask losses are
-        not ported). Drop-path masks and, unless `dn_noise` = (sign, part)
+        positive_map (B, G, T) bool (detection only), and with has_masks
+        True the instance masks (B, G, H/4, W/4) in {0, 1}, which add the
+        mask losses. Drop-path masks and, unless `dn_noise` = (sign, part)
         is given, the DN box noise come from `generator`."""
-        if targets.get("has_masks", False):
-            raise NotImplementedError("mask losses are not ported yet")
+        if task not in ("detection", "grounding"):
+            raise NotImplementedError(f"task {task!r} is not ported yet")
         c = self.cfg
         t = c.transformer
         lang = self.encode_text(text_ids, text_mask)
@@ -377,31 +397,53 @@ class UninextDETR(nn.Module):
         pad = 0 if dn_tgt is None else dn_tgt.shape[1]
         layers = []
         for lvl in range(t.dec_layers):
-            out = self._decode_outputs(trans, lvl)
+            out = self._decode_outputs(trans, lvl, task, lang["masks"])
             layer = {k: out[k][:, pad:] for k in
-                     ("pred_logits", "pred_boxes", "pred_boxious")}
+                     ("pred_logits", "pred_boxes", "pred_boxious", "hs",
+                      "base_reference")}
             if pad:
                 layer["dn_logits"] = out["pred_logits"][:, :pad]
                 layer["dn_boxes"] = out["pred_boxes"][:, :pad]
             layers.append(layer)
-        return self.compute_losses(layers, trans, targets, lang["masks"], dn_q2g)
+        spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
+        return self.compute_losses(layers, trans, targets, lang["masks"], dn_q2g,
+                                   task, image_sizes, spatial_shapes)
 
     def compute_losses(self, layers: List[Dict[str, torch.Tensor]], trans,
                        targets: Dict[str, torch.Tensor], lang_mask: torch.Tensor,
-                       dn_q2g: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Per-layer matching and losses (`uninext_tpu/models/detr.py:525`,
-        without the mask losses): simOTA for the decoder layers, Hungarian
-        for the encoder proposals, the DN slots by construction. Keys as the
-        JAX package's: `loss_ce`, `loss_bbox`, `loss_giou`, `loss_boxiou` of
-        the last layer, `_{lvl}` for the others, `_enc` and `_dn`."""
+                       dn_q2g: Optional[torch.Tensor], task: str = "detection",
+                       image_sizes: Optional[torch.Tensor] = None,
+                       spatial_shapes: Tuple[Tuple[int, int], ...] = ()
+                       ) -> Dict[str, torch.Tensor]:
+        """Per-layer matching and losses (`uninext_tpu/models/detr.py:525`):
+        simOTA for the decoder layers, Hungarian for the encoder proposals,
+        the DN slots by construction; with has_masks, the mask losses of each
+        layer's first `mask_head.max_insts` matched queries, whose dynamic
+        masks sit at their base references' centres. Grounding aligns with
+        one pooled token: a positive map of ones for every valid gt. Keys as
+        the JAX package's: `loss_ce`, `loss_bbox`, `loss_giou`,
+        `loss_boxiou`, `loss_mask`, `loss_dice` of the last layer, `_{lvl}`
+        for the others, `_enc` and `_dn`."""
         c = self.cfg
         t = c.transformer
         lcfg = c.loss
         gt_boxes, gt_valid = targets["boxes"], targets["valid"]
-        positive_map = targets["positive_map"] & gt_valid[..., None]
-        text_mask = lang_mask.float()
+        if task == "grounding":
+            positive_map = gt_valid[..., None]
+            text_mask = torch.ones(gt_valid.shape[0], 1, device=gt_valid.device)
+        else:
+            positive_map = targets["positive_map"] & gt_valid[..., None]
+            text_mask = lang_mask.float()
         num_boxes_global = gt_valid.sum().float().clamp(min=1.0)
         suffix = lambda lvl: "" if lvl == t.dec_layers - 1 else f"_{lvl}"
+
+        mask_feats = None
+        if c.mask_head.enabled and targets.get("has_masks", False):
+            if lcfg.boxinst:
+                raise NotImplementedError("BoxInst's mask losses are not ported yet")
+            mask_feats = self._mask_feats(trans["memory"], spatial_shapes)
+            tgt_masks_all = targets["masks"].float()
+            scale = image_sizes.flip(-1)[:, None].float()         # (B, 1, 2) = (w, h)
 
         per_layer: Dict[str, List[torch.Tensor]] = {}
         for layer in layers:
@@ -422,6 +464,14 @@ class UninextDETR(nn.Module):
                                                   q2g, text_mask, num_boxes, lcfg)}
             out.update(crit.loss_boxes(layer["pred_boxes"], gt_boxes, q2g, num_boxes,
                                        layer.get("pred_boxious")))
+            if mask_feats is not None:
+                sel_q, sel_valid = select_matched(q2g, c.mask_head.max_insts)
+                params = self.detr.controller(take_queries(layer["hs"], sel_q))
+                centers = take_queries(layer["base_reference"], sel_q)[..., :2] * scale
+                mask_logits = dynamic_mask_forward(mask_feats, centers, params,
+                                                   c.mask_head)
+                tgt = crit.gather_by_match(tgt_masks_all, torch.gather(q2g, 1, sel_q))
+                out.update(crit.loss_masks(mask_logits, tgt, sel_valid, num_boxes, lcfg))
             for k, v in out.items():
                 per_layer.setdefault(k, []).append(v)
         losses: Dict[str, torch.Tensor] = {}

@@ -56,7 +56,8 @@ def _aligned_bilinear_matrix(in_size: int, factor: int, device: torch.device,
     """(factor * in_size, in_size) matrix of the reference's aligned_bilinear
     along one axis: replicate-pad right by 1, resize with align_corners=True
     to factor * in_size + 1, replicate-pad left by factor // 2, crop. Made
-    once per device, so a request copies nothing to the card."""
+    once per device, so a request copies nothing to the card, and outside
+    inference mode, so training may use it after an evaluation made it."""
     h, p = in_size, factor // 2
     m = np.zeros((factor * h, h), dtype=np.float32)
     for j in range(factor * h):
@@ -65,7 +66,8 @@ def _aligned_bilinear_matrix(in_size: int, factor: int, device: torch.device,
         frac = c - lo
         m[j, min(lo, h - 1)] += 1 - frac
         m[j, min(lo + 1, h - 1)] += frac
-    return torch.from_numpy(m).to(device, dtype)
+    with torch.inference_mode(False):
+        return torch.from_numpy(m).to(device, dtype)
 
 
 def aligned_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:

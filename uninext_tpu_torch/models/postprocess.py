@@ -54,7 +54,7 @@ def postprocess_detection(outputs: Dict[str, torch.Tensor],
             "query_idx": query_idx}
 
 
-def _take_queries(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def take_queries(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x (B, Q, C) at query indices idx (B, K) -> (B, K, C)."""
     return torch.gather(x, 1, idx[..., None].expand(-1, -1, x.shape[-1]))
 
@@ -69,8 +69,8 @@ def postprocess_instseg(model, outputs: Dict, cls_token_map: torch.Tensor,
     idx = post["query_idx"]
     post["mask_logits"] = model.predict_masks(
         outputs["memory"], outputs["spatial_shapes"],
-        _take_queries(outputs["hs"], idx),
-        _take_queries(outputs["base_reference"], idx), image_sizes)
+        take_queries(outputs["hs"], idx),
+        take_queries(outputs["base_reference"], idx), image_sizes)
     return post
 
 
@@ -85,7 +85,7 @@ def postprocess_rec(model, outputs: Dict, image_sizes: torch.Tensor) -> Dict:
     best = prob.argmax(-1)[:, None]          # the first maximum, as jnp.argmax
     masks = model.predict_masks(
         outputs["memory"], outputs["spatial_shapes"],
-        _take_queries(outputs["hs"], best),
-        _take_queries(outputs["base_reference"], best), image_sizes)
-    return {"box": _take_queries(outputs["pred_boxes"], best)[:, 0],
+        take_queries(outputs["hs"], best),
+        take_queries(outputs["base_reference"], best), image_sizes)
+    return {"box": take_queries(outputs["pred_boxes"], best)[:, 0],
             "query_idx": best[:, 0], "mask_logits": masks}

@@ -8,7 +8,9 @@ Each runs on the card by default:
     python -m uninext_tpu_torch.tools.dma_probe
 
 and `kernel_times`, which times the NMS kernel and fold B (see its
-docstring).
+docstring), and `ap_check`, which trains `image_joint_r50` on the in-repo
+mini-COCO and reports its AP (`tools/real_ap_check.py --flagship`'s
+protocol).
 """
 import torch
 
