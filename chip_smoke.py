@@ -2,7 +2,9 @@
 """Drive the PyTorch port's paths once on one CUDA card: ViT-H detection
 serving and training, R50's three serving paths (detection, instance masks,
 REC/RES), its training step and its training loop with checkpoints and COCO
-evaluation, and the labs (`tools/`).
+evaluation, the video family of `video_joint_r50` (VIS, MOT and MOTS
+serving, the two-frame training step and the video loop to a track mAP),
+and the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -76,6 +78,31 @@ nonzero):
      step times, peak memory and seconds per evaluated image; launches
      (MSDA 18 and MSDA-bwd 12 a micro-step, MSDA 12 and NMS 1 an evaluated
      image) counted as path "r50_train_loop".
+ 10. VIS and MOT/MOTS: `video_joint_r50()` at full width (the deformable
+     reid head, frozen BERT; random weights from a seed, bf16, the COCO
+     prompt encoded once per video): one video of 6 frames at 480x736
+     through `VISDriver` (IDOL; NMS at 0.9 over the thresholded selection,
+     the masks and reid embeddings of the top 50, one copy to the host a
+     frame), then 6 frames of 720x1280 under the `mot` preset (750x1333
+     padded to 768x1344) through `MOTDriver` without and with masks
+     (QDTrack, NMS at 0.7); per-frame latency (the first frame apart),
+     peak memory, the tracks; launches per frame asserted (MSDA 14 of which
+     2 in the reid head, NMS 1), as paths "vis" and "mot". Then MSDA and
+     NMS against their plain versions at every input these paths gave them
+     (NMS with the frame step's partly false `valid` mask, and with the
+     upper half of the same scores valid), MSDA timed at S = 7341 and
+     21420;
+ 11. video training: `engine/train.py:train_step` on a pair batch at bs=2 (key, ref)
+     pairs at 800x1216 with masks, 1 warm-up and 2 timed steps; launches
+     per step asserted (MSDA 40 of which 12 recomputes, MSDA-bwd 22);
+     frozen BERT: no gradient, and after each update every parameter equals
+     its value before times (1 - lr_lang x schedule x wd); the R50 frozen
+     group bit-equal;
+ 12. video loop: a mini-YTVIS of 4 + 2 videos in a temporary directory
+     (`tools/vis_check.py --flagship`'s settings), `Trainer(video=True)`
+     for 10 steps, `VISDriver` and `evaluate_ytvis` on the val videos;
+     launches asserted as path "video_loop"; then MSDA and MSDA-bwd against
+     their plain versions at every shape the loop gave them.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -99,6 +126,12 @@ TRAIN_STEPS = 3
 R50_TRAIN_STEPS = 2
 LOOP_STEPS = 10            # updates before the checkpoint, then as many micro-steps
 LOOP_IMAGES = 8            # train and val images of the loop's mini-COCO
+VIS_HW = (480, 736)        # YT-VIS's eval size (min 480), bench.py's
+MOT_ORI = (720, 1280)      # BDD100K's frame size
+VIDEO_FRAMES = 6
+VIDEO_TRAIN_STEPS = 2
+VIDEO_LOOP_STEPS = 10
+VIDEO_LOOP_VIDEOS = (4, 2)  # train and val videos of the loop's mini-YTVIS
 # NVIDIA H100 SXM data sheet, dense, at 700 W: the bound of a kernel is the
 # larger of its bytes over HBM_BPS and its operations over the peak of
 # their type (bf16 tensor cores for the attention products, fp32 CUDA
@@ -1362,13 +1395,14 @@ def _recording_msda():
     return seen, lambda: setattr(layers, "ms_deform_attn", real)
 
 
-def _check_msda_calls(calls):
+def _check_msda_calls(calls, need_grad=True, label="train loop"):
     """MSDA against its plain version at every (B, level shapes, Lq, dtype)
     in `calls`, and MSDA-bwd against autograd through the plain version at
     those taken with a gradient, on random values and locations shaped like
     the model's (`_msda_model_set`), at phase_kernels' and
-    phase_backward_kernels' tolerances. Returns each kernel's largest errors
-    and the number of shapes held."""
+    phase_backward_kernels' tolerances. With `need_grad`, fails if no call
+    had a gradient. Returns each kernel's largest errors and the number of
+    shapes held."""
     import torch
     from uninext_tpu_torch.ops import msda
     tol_fwd = {torch.float32: 5e-5, torch.bfloat16: 3.2e-2}
@@ -1381,15 +1415,15 @@ def _check_msda_calls(calls):
         value = torch.randn(B, S, M, D, device="cuda", generator=g).to(dt)
         loc, att = _msda_model_set(g, B, Lq, shapes, M, P, encoder=Lq == S)
         what = f"B={B} levels={list(shapes)} Lq={Lq} {str(dt)[6:]}"
-        err = _check(f"ms_deform_attn at the loop's {what}",
+        err = _check(f"ms_deform_attn at the {label}'s {what}",
                      msda.ms_deform_attn(value, shapes, loc, att),
                      msda.ms_deform_attn_plain(value, shapes, loc, att), tol_fwd[dt])
         fwd["loop_max_abs_err"] = max(fwd["loop_max_abs_err"], err)
         fwd["loop_shapes"] += 1
-        line = f"[train loop] {what}: MSDA max_abs_err {err:.3g} (tol {tol_fwd[dt]})"
+        line = f"[{label}] {what}: MSDA max_abs_err {err:.3g} (tol {tol_fwd[dt]})"
         if grad:
             cot = torch.randn(B, Lq, M * D, device="cuda", generator=g).to(dt)
-            errs, rels, _ = _msda_bwd_check(f"at the loop's {what}", value, shapes, loc,
+            errs, rels, _ = _msda_bwd_check(f"at the {label}'s {what}", value, shapes, loc,
                                             att, cot, tol_bwd[dt], plain_ms=False)
             bwd["loop_max_abs_err"] = max(bwd["loop_max_abs_err"], *errs)
             bwd["loop_max_rel_err"] = max(bwd["loop_max_rel_err"], *rels)
@@ -1397,8 +1431,8 @@ def _check_msda_calls(calls):
             line += (f"; MSDA-bwd dvalue/dloc/datt / max |grad| = "
                      + "/".join(f"{x:.3g}" for x in rels) + f" (tol {tol_bwd[dt]})")
         print(line)
-    if not bwd["loop_shapes"]:
-        raise AssertionError("the loop made no MSDA call with a gradient")
+    if need_grad and not bwd["loop_shapes"]:
+        raise AssertionError(f"{label}: no MSDA call with a gradient")
     return {"ms_deform_attn_fwd": fwd, "ms_deform_attn_bwd": bwd}
 
 
@@ -1518,6 +1552,529 @@ def phase_train_loop(profile: bool):
     return launches, checks
 
 
+# ---- the video family of video_joint_r50 ---------------------------------------
+
+
+def _watch_frames(drv, counters, check):
+    """Wrap a VIS/MOT driver's `frame_outputs` (the frame step and its one
+    copy to the host, which synchronises): each frame's host time and the
+    kernel launches it made, and `check` on its outputs."""
+    import torch
+    real, log = drv.frame_outputs, []
+
+    def watched(*args):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args)
+        log.append(((time.perf_counter() - t0) * 1e3,
+                    {k: c.launches - before[k] for k, c in counters.items()}))
+        check(out)
+        return out
+
+    drv.frame_outputs = watched
+    return log
+
+
+def _recording_nms():
+    """A pass-through in front of the frame step's NMS
+    (`engine/video_inference.py` calls `batched_nms` by that name) that
+    keeps each call's inputs. Returns the records and a function that takes
+    the pass-through out again."""
+    from uninext_tpu_torch.engine import video_inference
+    real, seen = video_inference.batched_nms, []
+
+    def recording(boxes, scores, classes, thr, valid=None):
+        seen.append((boxes.clone(), scores.clone(), classes.clone(), thr,
+                     None if valid is None else valid.clone()))
+        return real(boxes, scores, classes, thr, valid=valid)
+
+    video_inference.batched_nms = recording
+    return seen, lambda: setattr(video_inference, "batched_nms", real)
+
+
+def _check_nms_calls(calls, label):
+    """The NMS kernel's keep mask equal to the plain version's on every
+    recorded input, whose `valid` mask (the frame step's selection) must be
+    partly false, and on the same boxes, scores and classes with the upper
+    half of the scores valid (random weights select few queries, so this
+    makes NMS suppress at the path's shapes); no box outside `valid` kept.
+    The kernel (over CUDA graph replays) and the plain version timed on the
+    last input, with each mask."""
+    import torch
+    from uninext_tpu_torch.ops import nms
+    from uninext_tpu_torch.tools import event_ms
+    kept = {"frame": [], "upper half": []}
+    for boxes, scores, classes, thr, valid in calls:
+        if valid is None or bool(valid.all()):
+            raise AssertionError(f"{label}: NMS got no valid mask, or one all true")
+        half = (scores > scores.median()).contiguous()
+        for kind, v in (("frame", valid), ("upper half", half)):
+            got = nms.batched_nms(boxes, scores, classes, thr, valid=v)
+            want = nms.batched_nms_plain(boxes, scores, classes, thr, valid=v)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: NMS keep mask ({kind} valid) differs from "
+                                     "the plain version")
+            if bool((got & ~v).any()):
+                raise AssertionError(f"{label}: NMS kept a box outside the valid mask")
+            kept[kind].append((int(v.sum()), int(got.sum())))
+    boxes, scores, classes, thr, valid = calls[-1]
+    times = {}
+    for kind, v in (("frame", valid), ("upper half", (scores > scores.median()).contiguous())):
+        times[kind] = (event_ms(lambda: nms.batched_nms(boxes, scores, classes, thr,
+                                                        valid=v), 50),
+                       _timed(lambda: nms.batched_nms_plain(boxes, scores, classes, thr,
+                                                            valid=v), 2, warmup=1))
+    N = boxes.shape[1]
+    print(f"[{label}] NMS at the frame step's {len(calls)} inputs (N={N}, thr {thr}): keep "
+          f"masks identical to the plain version's with the frame step's valid mask, "
+          f"(valid, kept) per frame {kept['frame']}, and with the upper half of the scores "
+          f"valid, {kept['upper half']}; kernel over graph replays "
+          f"{times['frame'][0]:.4f} ms and {times['upper half'][0]:.4f} ms, plain "
+          f"{times['frame'][1]:.3f} ms and {times['upper half'][1]:.3f} ms")
+    return {f"{label}_ms": times["frame"][0], f"{label}_plain_ms": times["frame"][1],
+            f"{label}_half_valid_ms": times["upper half"][0],
+            f"{label}_half_valid_plain_ms": times["upper half"][1],
+            f"{label}_calls": len(calls), f"{label}_valid_kept": kept["frame"],
+            f"{label}_half_valid_kept": kept["upper half"]}
+
+
+def _msda_bound(B, S, Lq, M, D, L, P, elt):
+    """MSDA's bound: the value (`elt` bytes), fp32 locations and weights and
+    the output moved once; 10 flops per sample and channel (4 corner
+    weights, 4 multiply-adds, the weight)."""
+    n = B * Lq * M * L * P
+    return _bound(elt * B * S * M * D + 4 * 3 * n + elt * B * Lq * M * D, n * 10 * D, "fp32")
+
+
+def _time_msda_calls(calls, label):
+    """MSDA (kernel, CUDA graph replays) and its plain version timed at each
+    recorded (B, level shapes, Lq, dtype), beside the bound. Returns
+    {"<label>_<encoder|decoder>_{ms,plain_ms,bound_ms}": ...}."""
+    import torch
+    from uninext_tpu_torch.ops import msda
+    from uninext_tpu_torch.tools import event_ms
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for B, shapes, Lq, M, D, P, dt, _ in sorted(calls, key=str):
+        S = sum(h * w for h, w in shapes)
+        value = torch.randn(B, S, M, D, device="cuda", generator=g).to(dt)
+        loc, att = _msda_model_set(g, B, Lq, shapes, M, P, encoder=Lq == S)
+        args = (value, shapes, loc, att)
+        ms = event_ms(lambda: msda.ms_deform_attn(*args), 20)
+        pms = _timed(lambda: msda.ms_deform_attn_plain(*args), 3)
+        b_ms, b_by = _msda_bound(B, S, Lq, M, D, len(shapes), P,
+                                 value.element_size())
+        kind = "encoder" if Lq == S else "decoder"
+        out.update({f"{label}_{kind}_ms": ms, f"{label}_{kind}_plain_ms": pms,
+                    f"{label}_{kind}_bound_ms": b_ms})
+        print(f"[{label}] MSDA {kind} B={B} levels={list(shapes)} S={S} Lq={Lq} "
+              f"{str(dt)[6:]}: kernel {ms:.4f} ms (CUDA graph replays, "
+              f"{100 * b_ms / ms:.1f}% of its bound {b_ms:.4f} ms, {b_by}), plain "
+              f"{pms:.3f} ms")
+    return out
+
+
+def _moving_frames(g, n, H, W, valid_hw=None):
+    """`n` frames (1, H, W, 3) of one random scene moving 6 px a frame, the
+    padding beyond `valid_hw` zero, with their padding mask (1, H, W)."""
+    import torch
+    dev = g.device
+    h, w = valid_hw or (H, W)
+    scene = torch.randn(1, H, W + 6 * n, 3, device=dev, generator=g)
+    pad = torch.zeros(1, H, W, dtype=torch.bool, device=dev)
+    pad[:, h:] = True
+    pad[:, :, w:] = True
+    frames = [torch.where(pad[..., None], 0.0, scene[:, :, 6 * t:6 * t + W])
+              for t in range(n)]
+    return frames, pad
+
+
+def _video_frame_check(cfg, hw, with_masks):
+    """Finite frame-step outputs of the expected shapes: TOPK_VIS slots,
+    embeddings of d_model, scores in [0, 1], and the masks (K, H/4, W/4)."""
+    import numpy as np
+    from uninext_tpu_torch.engine.video_inference import TOPK_VIS
+    K, d = TOPK_VIS, cfg.transformer.d_model
+
+    def check(o):
+        shapes = {"valid": (K,), "boxes": (K, 4), "max_scores": (K,),
+                  "embeds": (K, d), "scores_full": (K, 80)}
+        if with_masks:
+            shapes["mask_logits"] = (K, hw[0] // 4, hw[1] // 4)
+        for k, s in shapes.items():
+            if o[k].shape != s:
+                raise AssertionError(f"frame step {k}: shape {o[k].shape} != {s}")
+            if not np.isfinite(o[k].astype(np.float64)).all():
+                raise AssertionError(f"frame step {k}: non-finite values")
+        if not o["valid"].any():
+            raise AssertionError("frame step: no valid slot (the best query is kept)")
+        s = o["max_scores"][o["valid"]]
+        if not ((s > 0) & (s <= 1)).all():
+            raise AssertionError(f"frame step: scores outside (0, 1]: {s}")
+    return check
+
+
+def _video_launch_check(label, log, counters, cfg):
+    """Launches per frame: MSDA enc + dec + reid layers, NMS 1, no other."""
+    t = cfg.transformer
+    expect = {**dict.fromkeys(counters, 0), "nms": 1,
+              "ms_deform_attn_fwd": t.enc_layers + t.dec_layers + cfg.n_layer_deformable_reid}
+    for i, (_, counts) in enumerate(log):
+        if counts != expect:
+            raise AssertionError(f"{label} frame {i}: launches {counts} != {expect}")
+    ms = [x for x, _ in log]
+    rest = sorted(ms[1:])
+    print(f"[{label}] frame step (forward, NMS, masks, reid, one copy to the host) ms: "
+          f"first frame {ms[0]:.1f}; frames 2-{len(ms)}: median {rest[len(rest) // 2]:.1f}, "
+          f"range {rest[0]:.1f}-{rest[-1]:.1f}; launches per frame "
+          f"{ {k: v for k, v in expect.items() if v} }")
+    return ms
+
+
+def phase_video_serving(cfg):
+    """`video_joint_r50` at full width (random weights from seed 0, bf16,
+    the 80-class COCO prompt encoded once per video): VIS, one video of
+    VIDEO_FRAMES frames at VIS_HW through `VISDriver` (IDOL, NMS at 0.9);
+    then MOT and MOTS, VIDEO_FRAMES frames of MOT_ORI (BDD100K) under the
+    `mot` preset (800 / 1333: 750x1333 padded to 768x1344) through
+    `MOTDriver` without and with masks (QDTrack, NMS at 0.7). Launches per
+    frame asserted (MSDA 14, NMS 1). After the counts are read, MSDA and
+    NMS are held against their plain versions at every input these paths
+    gave them (NMS with the frame step's partly false `valid` mask), and
+    MSDA is timed at the VIS and MOT shapes. Returns ({"vis": launches,
+    "mot": launches}, kernel records)."""
+    import torch
+    from uninext_tpu_torch.config import eval_config
+    from uninext_tpu_torch.data.coco import resize_shortest_edge
+    from uninext_tpu_torch.engine.mot_inference import MOTDriver
+    from uninext_tpu_torch.engine.video_inference import VISDriver
+    from uninext_tpu_torch.models.detr import build_model
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0).eval()
+    torch.cuda.synchronize()
+    print(f"[vis] video_joint_r50: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+          f"parameters (reid head: deformable, {cfg.n_layer_deformable_reid} layers), "
+          f"{cfg.compute_dtype} compute, random weights from seed 0, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ids, tmask, cmap = _prompt(cfg)
+    counters = _counters()
+    g = torch.Generator(device=dev).manual_seed(5)
+    launches, records = {}, {"msda": {}, "nms": {}}
+
+    # VIS
+    H, W = VIS_HW
+    frames, pad = _moving_frames(g, VIDEO_FRAMES, H, W)
+    sizes = torch.tensor([[H, W]], device=dev)
+    drv = VISDriver(model, cfg, cmap)
+    log = _watch_frames(drv, counters, _video_frame_check(cfg, VIS_HW, True))
+    msda_calls, unrecord_msda = _recording_msda()
+    nms_calls, unrecord_nms = _recording_nms()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = drv.run_video(frames, pad, sizes, ids[None], tmask[None], ori_size=(720, 1280))
+    video_ms = (time.perf_counter() - t0) * 1e3
+    unrecord_msda(), unrecord_nms()
+    launches["vis"] = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _video_launch_check("vis", log, counters, cfg)
+    n_masks = [sum(m is not None for m in ms) for ms in out["pred_masks"]]
+    print(f"[vis] one video of {VIDEO_FRAMES} frames at {H}x{W} (original 720x1280): "
+          f"{video_ms:.1f} ms with the tracker, masks to the original size and RLE; "
+          f"peak device memory {peak:.2f} GiB; {len(out['pred_scores'])} tracks "
+          f"(labels {out['pred_labels'][:10]}, scores "
+          f"{[round(s, 4) for s in out['pred_scores'][:10]]}, frames with a mask "
+          f"{n_masks[:10]})")
+    if len(out["pred_masks"]) and any(len(m) != VIDEO_FRAMES for m in out["pred_masks"]):
+        raise AssertionError("vis: a track's mask list does not span the video")
+    records["msda"].update(_check_vis_mot_msda(msda_calls, "vis"))
+    records["nms"].update(_check_nms_calls(nms_calls, "vis"))
+    del frames, pad
+
+    # MOT and MOTS at BDD100K's frame size under the mot preset
+    mot_cfg, _, _ = eval_config(cfg, "mot")
+    h, w = resize_shortest_edge(*MOT_ORI, mot_cfg.data.min_size_test,
+                                mot_cfg.data.max_size_test)
+    Hp, Wp = -(-h // 32) * 32, -(-w // 32) * 32
+    frames, pad = _moving_frames(g, VIDEO_FRAMES, Hp, Wp, (h, w))
+    sizes = torch.tensor([[h, w]], device=dev)
+    msda_calls, unrecord_msda = _recording_msda()
+    nms_calls, unrecord_nms = _recording_nms()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for with_masks in (False, True):
+        label = "mots" if with_masks else "mot"
+        drv = MOTDriver(model, mot_cfg, cmap, with_masks=with_masks)
+        log = _watch_frames(drv, counters, _video_frame_check(cfg, (Hp, Wp), with_masks))
+        t0 = time.perf_counter()
+        per_frame = drv.run_video(frames, pad, sizes, ids[None], tmask[None],
+                                  ori_size=MOT_ORI)
+        video_ms = (time.perf_counter() - t0) * 1e3
+        _video_launch_check(label, log, counters, cfg)
+        tracks = sorted({d["id"] for dets in per_frame for d in dets})
+        if with_masks and any(d["mask"].shape != MOT_ORI for dets in per_frame
+                              for d in dets):
+            raise AssertionError("mots: a mask is not at the original size")
+        print(f"[{label}] {VIDEO_FRAMES} frames of {MOT_ORI[0]}x{MOT_ORI[1]} at {h}x{w} "
+              f"padded to {Hp}x{Wp}: {video_ms:.1f} ms with QDTrack"
+              + (" and the masks at the original size" if with_masks else "")
+              + f"; detections per frame {[len(d) for d in per_frame]}, "
+              f"{len(tracks)} track ids")
+    unrecord_msda(), unrecord_nms()
+    launches["mot"] = {k: c.launches for k, c in counters.items()}
+    print(f"[mot] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          f"(MOT and MOTS)")
+    records["msda"].update(_check_vis_mot_msda(msda_calls, "mot"))
+    records["nms"].update(_check_nms_calls(nms_calls, "mot"))
+    del model, frames, pad
+    torch.cuda.empty_cache()
+    return launches, records
+
+
+def _check_vis_mot_msda(calls, label):
+    """MSDA against its plain version at every shape a serving path gave it
+    (`_check_msda_calls`), then timed there."""
+    checks = _check_msda_calls(calls, need_grad=False, label=label)["ms_deform_attn_fwd"]
+    out = {f"{label}_max_abs_err": checks["loop_max_abs_err"],
+           f"{label}_shapes": checks["loop_shapes"]}
+    out.update(_time_msda_calls(calls, label))
+    return out
+
+
+def _video_train_batch(cfg, dev):
+    """A (key, ref) pair batch at bs=2 from `_train_batch`'s key frames:
+    the ref frames are other random images (image 1 valid on 800x1088), the
+    boxes move up to 2% of the image, object 0 of image 0 is gone from the
+    ref frame; instance masks (the boxes filled) for both frames."""
+    import torch
+    b = _train_batch(cfg, dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    images_ref = torch.randn(b["images"].shape, device=dev, generator=g)
+    images_ref[1, :, 1088:] = 0
+    tk = b["targets"]
+    boxes_r = tk["boxes"].clone()
+    boxes_r[..., :2] += 0.02 * (torch.rand(boxes_r[..., :2].shape, device=dev,
+                                           generator=g) * 2 - 1)
+    valid_r = tk["valid"].clone()
+    valid_r[0, 0] = False
+    h4, w4 = IMAGE_HW[0] // 4, IMAGE_HW[1] // 4
+
+    def masks(boxes, valid):
+        ys = (torch.arange(h4, device=dev) + 0.5) / h4
+        xs = (torch.arange(w4, device=dev) + 0.5) / w4
+        cx, cy, w, h = boxes.unbind(-1)
+        inside = (((ys[:, None] - cy[..., None, None]).abs() < h[..., None, None] / 2)
+                  & ((xs[None] - cx[..., None, None]).abs() < w[..., None, None] / 2))
+        return (inside & valid[..., None, None]).float()
+
+    return {"images_key": b["images"], "images_ref": images_ref, "img_mask": b["img_mask"],
+            "image_sizes": b["image_sizes"], "text_ids": b["text_ids"],
+            "text_mask": b["text_mask"],
+            "targets_key": {**tk, "masks": masks(tk["boxes"], tk["valid"]),
+                            "has_masks": True},
+            "targets_ref": {"boxes": boxes_r, "valid": valid_r,
+                            "positive_map": tk["positive_map"],
+                            "masks": masks(boxes_r, valid_r), "has_masks": True}}
+
+
+def phase_video_training(cfg, n_steps: int):
+    """The two-frame training step of `video_joint_r50` at full width
+    (`engine/train.py:train_step` on a pair batch: one R50 pass over the 2B clip, two
+    transformer passes, the key frame's detection and mask losses, simOTA on
+    both frames, the reid head on both, `loss_reid_static`), 1 warm-up and
+    `n_steps` timed steps at bs=2 with key and ref at IMAGE_HW. Launches
+    per step asserted; the frozen BERT: no gradient, and after every update
+    each parameter equals its value before times (1 - lr_lang * schedule *
+    wd) to fp32 rounding (AdamW's decay on a zero gradient, as optax
+    decays it); the R50 frozen group bit-equal. Returns the launches of the
+    timed steps."""
+    import torch
+    from uninext_tpu_torch.engine.train import build_train_state, train_step
+    from uninext_tpu_torch.ops import msda
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state = build_train_state(cfg, seed=0)
+    batch = _video_train_batch(cfg, dev)
+    params = dict(state.model.named_parameters())
+    frozen = {n: params[n].detach().clone() for n in state.optimizer.names["frozen"]}
+    bert = [n for n in params if n.startswith("text_encoder.")]
+    if not bert or set(bert) - set(state.optimizer.names["lang"]):
+        raise AssertionError("BERT's parameters are not all in the optimizer's lang group")
+    torch.cuda.synchronize()
+    print(f"[video training] video_joint_r50, bs={TRAIN_BATCH} (key, ref) pairs at "
+          f"{IMAGE_HW[0]}x{IMAGE_HW[1]} (image 1 valid on 800x1088), gt boxes key "
+          f"{batch['targets_key']['valid'].sum(1).tolist()}, ref "
+          f"{batch['targets_ref']['valid'].sum(1).tolist()}, with masks; frozen BERT "
+          f"({len(bert)} parameters), detach_reid {cfg.detach_reid}, encoder "
+          f"checkpointing {cfg.remat_encoder}; set up in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_step(state, batch)
+    torch.cuda.synchronize()
+    print(f"[video training] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    counters = _counters()
+    t = cfg.transformer
+    n_reid = cfg.n_layer_deformable_reid
+    n_remat = t.enc_layers if cfg.remat_encoder else 0
+    # forward: both frames' encoders and decoders and the reid head on both;
+    # the recompute of both encoders. Backward: the key frame's encoder and
+    # decoder, the ref frame's encoder (the reid head attends to its
+    # memory), the reid head on both; the ref decoder's outputs are all
+    # stopped (its heads and references, and with detach_reid its states)
+    expect = {**dict.fromkeys(counters, 0),
+              "ms_deform_attn_fwd": 2 * (t.enc_layers + t.dec_layers + n_reid + n_remat),
+              "ms_deform_attn_bwd": 2 * t.enc_layers + t.dec_layers + 2 * n_reid
+              + (0 if cfg.detach_reid else t.dec_layers)}
+    expect_recompute = {"ms_deform_attn_fwd": 2 * n_remat}
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    msda.ms_deform_attn.recompute_launches = 0
+    lr, wd = cfg.solver.lang_lr, cfg.solver.weight_decay
+    step_ms, metrics, per_step, decay_err = [], [], [], 0.0
+    for _ in range(n_steps):
+        before = {k: c.launches for k, c in counters.items()}
+        before_r = msda.ms_deform_attn.recompute_launches
+        old = {n: params[n].detach().clone() for n in bert}
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(({k: c.launches - before[k] for k, c in counters.items()},
+                         {"ms_deform_attn_fwd": msda.ms_deform_attn.recompute_launches
+                          - before_r}))
+        metrics.append({k: float(v) for k, v in m.items()})
+        graded = [n for n in bert if params[n].grad is not None]
+        if graded:
+            raise AssertionError(f"frozen BERT parameters got a gradient: {graded[:5]}")
+        factor = 1.0 - lr * state.optimizer.schedule(state.optimizer.count - 1) * wd
+        for n in bert:
+            want = old[n] * factor
+            err = ((params[n] - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+            decay_err = max(decay_err, err)
+            if not err <= 2.5e-7:
+                raise AssertionError(f"{n}: after the update {err:.3g} (relative) from "
+                                     f"its value before x (1 - lr_lang x schedule x wd)")
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(metrics):
+        print(f"[video training] step {i + 1}: total_loss {m['total_loss']:.6g}, grad norm "
+              f"before the clip {m['grad_norm']:.6g}, {step_ms[i]:.1f} ms; losses "
+              + json.dumps({k: round(v, 6) for k, v in m.items()
+                            if k not in ("total_loss", "grad_norm")}))
+    print(f"[video training] step ms (host clock, synchronised): "
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"; peak device memory {peak:.2f} GiB (max_memory_allocated)")
+    print(f"[video training] kernel launches per step: {per_step[0][0]}, of them "
+          f"recomputes {per_step[0][1]}; expected {expect}, recomputes {expect_recompute}")
+    for i, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"video step {i + 1}: non-finite {bad}")
+        if m["loss_reid"] <= 0:
+            raise AssertionError(f"video step {i + 1}: loss_reid {m['loss_reid']}")
+    if metrics[0]["total_loss"] == metrics[-1]["total_loss"]:
+        raise AssertionError("video training: the total loss did not change")
+    for counts, rcounts in per_step:
+        if counts != expect or rcounts != expect_recompute:
+            raise AssertionError(f"video launches per step {counts} (recomputes {rcounts})"
+                                 f" != {expect} ({expect_recompute})")
+    moved = [n for n, p in frozen.items() if not torch.equal(params[n], p)]
+    if moved:
+        raise AssertionError(f"video training: frozen parameters moved: {moved[:5]}")
+    print(f"[video training] frozen BERT: no gradient in any step; each of its {len(bert)} "
+          f"parameters after each update = before x (1 - lr_lang x schedule x wd) within "
+          f"{decay_err:.3g} (relative; tolerance 2.5e-7); the {len(frozen)} frozen R50 "
+          f"parameters bit-equal")
+    del state, batch, params, frozen
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_video_loop():
+    """`video_joint_r50` at full width through the port's video loop on a
+    mini-YTVIS of VIDEO_LOOP_VIDEOS train and val videos (6 frames of
+    192x256) written to a temporary directory, at the flagship fixture run's
+    settings (`tools/vis_check.py --flagship`): `VideoPairMapper` ->
+    `MultiDatasetLoader` (bs=2) -> `Trainer(video=True)` for
+    VIDEO_LOOP_STEPS updates -> `VISDriver` on every val video ->
+    `evaluate_ytvis` (any track mAP; it has to run). Launches counted as
+    path "video_loop"; after they are read, MSDA and MSDA-bwd are held
+    against their plain versions at every shape the loop gave them.
+    Returns the launches and those checks."""
+    import tempfile
+    import torch
+    from uninext_tpu_torch.data.loader import MultiDatasetLoader
+    from uninext_tpu_torch.data.mini_coco import make_mini_ytvis
+    from uninext_tpu_torch.data.video import VideoPairMapper, load_ytvis_json
+    from uninext_tpu_torch.engine.trainer import Trainer
+    from uninext_tpu_torch.tools import ap_check, vis_check
+    counters = _counters()
+    cfg = vis_check.build_cfg(VIDEO_LOOP_STEPS, flagship=True)
+    calls, unrecord = _recording_msda()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n_train, n_val = VIDEO_LOOP_VIDEOS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as root:
+        t0 = time.perf_counter()
+        paths = make_mini_ytvis(os.path.join(root, "data"), n_train=n_train, n_val=n_val)
+        train_recs, cats = load_ytvis_json(paths["train_json"], paths["train_root"])
+        val_recs, _ = load_ytvis_json(paths["val_json"], paths["val_root"])
+        mapper = VideoPairMapper(cfg.data, cats, is_train=True, with_masks=True,
+                                 sampling_frame_range=5)
+        batches = iter(MultiDatasetLoader([(train_recs, mapper, 2)], [1.0], seed=0,
+                                          num_workers=2))
+        log = ap_check.StepLog()
+        trainer = Trainer(cfg, batches, output_dir=os.path.join(root, "run"), seed=0,
+                          video=True, extra_hooks=[log])
+        print(f"[video loop] mini-YTVIS of {n_train} + {n_val} videos written and the "
+              f"trainer built in {time.perf_counter() - t0:.1f} s")
+        trainer.train()
+        batches.close()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        t0 = time.perf_counter()
+        res, video_s = vis_check.eval_vis(trainer.model, cfg, val_recs, paths["val_json"],
+                                          cats, "cuda")
+        eval_s = time.perf_counter() - t0
+        n_frames = sum(r["length"] for r in val_recs)
+    unrecord()
+    step_ms = [x * 1e3 for x in log.seconds]
+    if not all(map(math.isfinite, log.total_loss)):
+        raise AssertionError(f"video loop: non-finite total loss {log.total_loss}")
+    print("[video loop] total loss per step: "
+          + ", ".join(f"{x:.4g}" for x in log.total_loss))
+    print(f"[video loop] step ms (host clock to the end of each step's device work): "
+          + ", ".join(f"{x:.1f}" for x in step_ms) + f"; peak device memory {peak:.2f} GiB")
+    print(f"[video loop] VISDriver on {n_val} val videos ({n_frames} frames): {eval_s:.1f} s "
+          f"(per video {[round(x, 2) for x in video_s]} s); track mAP after "
+          f"{VIDEO_LOOP_STEPS} steps: "
+          + json.dumps({k: (round(v, 4) if math.isfinite(v) else v) for k, v in res.items()}))
+    if not math.isfinite(res["AP"]):
+        raise AssertionError(f"video loop: track mAP {res['AP']}")
+    launches = {k: c.launches for k, c in counters.items()}
+    t = cfg.transformer
+    n_reid = cfg.n_layer_deformable_reid
+    n_remat = t.enc_layers if cfg.remat_encoder else 0
+    expect = {**dict.fromkeys(counters, 0),
+              "ms_deform_attn_fwd": VIDEO_LOOP_STEPS * 2 * (t.enc_layers + t.dec_layers
+                                                            + n_reid + n_remat)
+              + n_frames * (t.enc_layers + t.dec_layers + n_reid),
+              "ms_deform_attn_bwd": VIDEO_LOOP_STEPS * (
+                  2 * t.enc_layers + t.dec_layers + 2 * n_reid
+                  + (0 if cfg.detach_reid else t.dec_layers)),
+              "nms": n_frames}
+    print(f"[video loop] kernel launches: {launches}; expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"video loop launches {launches} != {expect}")
+    checks = _check_msda_calls(calls, label="video loop")
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -1623,12 +2180,26 @@ def main():
     for name, r in loop_checks.items():
         rec[name].update(r)
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], r["loop_max_abs_err"])
+    from uninext_tpu_torch.config import video_joint_r50
+    video = video_joint_r50()
+    video_serving, video_rec = phase_video_serving(video)
+    video_training = phase_video_training(video, VIDEO_TRAIN_STEPS)
+    video_loop, video_checks = phase_video_loop()
+    rec["ms_deform_attn_fwd"].update(video_rec["msda"])
+    rec["nms"].update(video_rec["nms"])
+    for name, r in video_checks.items():
+        rec[name].update({f"video_{k}": v for k, v in r.items()})
+    for r in (rec["ms_deform_attn_fwd"], rec["ms_deform_attn_bwd"]):
+        r["max_abs_err"] = max([r["max_abs_err"]] + [
+            v for k, v in r.items() if k.endswith("max_abs_err") and k != "max_abs_err"])
     import torch
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         by_path = {"serving": serving["detection"][name], "training": training[name],
                    **{f"r50_{task}": n[name] for task, n in r50_serving.items()},
                    "r50_training": r50_training[name], "r50_train_loop": r50_loop[name],
+                   "vis": video_serving["vis"][name], "mot": video_serving["mot"][name],
+                   "video_training": video_training[name], "video_loop": video_loop[name],
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -1647,7 +2218,9 @@ def main():
                                              "level3_graph_ms", "tp4_ms", "tp4_library_ms",
                                              "tp4_bound_ms", "loop_max_abs_err",
                                              "loop_max_rel_err", "loop_shapes")
-                           if k in r}})
+                           if k in r},
+                        **{k: v for k, v in r.items()
+                           if k.startswith(("vis_", "mot_", "video_"))}})
         k = kernels[-1]
         if "kernel_ms" in k:
             k["kernel_bound_share"] = k["bound_ms"] / k["kernel_ms"]

@@ -11,7 +11,8 @@ import uninext_tpu_torch.config as tcfg
 
 
 @pytest.mark.parametrize("preset", ["image_joint_r50", "image_joint_vit_huge",
-                                    "tiny_test_config", "UninextConfig"])
+                                    "video_joint_r50", "tiny_test_config",
+                                    "tiny_video_test_config", "UninextConfig"])
 def test_preset_matches_jax_field_by_field(preset):
     got = dataclasses.asdict(getattr(tcfg, preset)())
     want = dataclasses.asdict(getattr(jcfg, preset)())
@@ -25,3 +26,39 @@ def test_dataclasses_have_the_same_fields():
         got = [(f.name, f.type) for f in dataclasses.fields(getattr(tcfg, name))]
         want = [(f.name, f.type) for f in dataclasses.fields(getattr(jcfg, name))]
         assert got == want, name
+
+
+@pytest.mark.parametrize("task", sorted(jcfg.EVAL_PRESETS))
+def test_eval_presets_match_jax(task):
+    """`EVAL_PRESETS` and what `eval_config` makes of `video_joint_r50`."""
+    assert tcfg.EVAL_PRESETS[task] == jcfg.EVAL_PRESETS[task]
+    got = tcfg.eval_config(tcfg.video_joint_r50(), task)
+    want = jcfg.eval_config(jcfg.video_joint_r50(), task)
+    assert (dataclasses.asdict(got[0]), got[1:]) == (dataclasses.asdict(want[0]), want[1:])
+
+
+@pytest.mark.parametrize("flagship", [False, True])
+def test_vis_fixture_config_matches_the_jax_tool(flagship):
+    """`tools/vis_check.py:build_cfg` is `tools/_evidence_common.py:
+    build_tiny_cfg(steps, frame_range=5, use_reid=True)`, or with
+    `flagship` `tools/real_vis_check.py:flagship_cfg(steps)`."""
+    import importlib.util
+    import os
+    import sys
+    from uninext_tpu_torch.tools import vis_check
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "tools")
+    sys.path.insert(0, tools)
+    try:
+        if flagship:
+            spec = importlib.util.spec_from_file_location(
+                "real_vis_check", os.path.join(tools, "real_vis_check.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            want = mod.flagship_cfg(1000)
+        else:
+            from _evidence_common import build_tiny_cfg
+            want = build_tiny_cfg(1000, frame_range=5, use_reid=True)
+    finally:
+        sys.path.remove(tools)
+    assert dataclasses.asdict(vis_check.build_cfg(1000, flagship)) == dataclasses.asdict(want)

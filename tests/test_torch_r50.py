@@ -179,6 +179,17 @@ def test_r50_bridge_round_trip_through_convert_checkpoint(pair):
                                       err_msg=jax.tree_util.keystr(path))
 
 
+def test_r50_bridge_refuses_an_image_tree_without_dn_resizer(pair):
+    """Only a video tree (one with the reid head) may lack the DN label
+    encoder: an image tree without `dn_resizer` raises, naming the leaf,
+    and the port's `detr.resizer.*` is not left with its random values."""
+    cfg, *_, params, _ = pair
+    tree = {**params, "params": {k: v for k, v in params["params"].items()
+                                 if k != "dn_resizer"}}
+    with pytest.raises(KeyError, match="dn_resizer"):
+        convert.load_jax_params(build_model(cfg, "cpu", seed=1), tree)
+
+
 def test_r50_random_init_matches_jax_distributions(initial):
     """A model the port builds from a seed (what a run from scratch, as the
     fixture AP run, starts from) draws every leaf from JAX's distribution:

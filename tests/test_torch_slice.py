@@ -97,8 +97,10 @@ def test_bridge_round_trip_through_convert_checkpoint(pair):
 def test_port_runs_without_jax():
     """Importing the port, serving a request and taking a train step with
     the ViT and the R50 backbones (with R50 also the instance masks and
-    REC/RES), running the three labs (`tools/`), and the training loop with
-    its data pipeline, checkpoints and COCO evaluation, at a tiny size,
+    REC/RES), running the three labs (`tools/`), the training loop with
+    its data pipeline, checkpoints and COCO evaluation, and the video
+    family (`VISDriver` over 2 frames, a two-frame train step, the VIS
+    fixture tool's loop), at a tiny size,
     leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
     without them."""
@@ -194,6 +196,35 @@ def test_port_runs_without_jax():
         assert res["step_ms"]["steps"] == 2 and res["eval_seconds_per_image"]["images"] == 2
         assert all(res[k][m] is not None for k in ("bbox", "segm") for m in ("AP", "AP50"))
         assert any(m.startswith("libcocoeval") for m in os.listdir(fast_eval.BUILD_DIR))
+        # the video family: VISDriver over 2 frames of tiny_video_test_config
+        # with the deformable reid head, one two-frame train step, and the
+        # fixture tool's loop (mini-YTVIS, Trainer(video=True), VISDriver,
+        # the ytvis track mAP) at a tiny size
+        from uninext_tpu_torch.config import tiny_video_test_config
+        from uninext_tpu_torch.engine.video_inference import VISDriver
+        vcfg = dataclasses.replace(tiny_video_test_config(), use_deformable_reid=True,
+                                   detach_reid=True)
+        model = build_model(vcfg, "cpu", seed=5)
+        drv = VISDriver(model, vcfg, cmap[:3], device="cpu")
+        frames = [images[1:], images[1:].roll(4, dims=2)]
+        vis = drv.run_video(frames, torch.zeros(1, 64, 96, dtype=torch.bool),
+                            torch.tensor([[64, 96]]), p_ids[None], p_mask[None],
+                            ori_size=(64, 96))
+        assert all(len(m) == 2 for m in vis["pred_masks"])
+        state = build_train_state(vcfg, "cpu", seed=5)
+        tk = {**targets, "has_masks": False}
+        metrics = train_step(state, {
+            "images_key": images, "images_ref": images.roll(4, dims=2),
+            "img_mask": img_mask, "image_sizes": sizes,
+            "text_ids": torch.from_numpy(p_ids).long()[None].expand(2, 16),
+            "text_mask": torch.from_numpy(p_mask)[None].expand(2, 16),
+            "targets_key": tk, "targets_ref": tk})
+        assert torch.isfinite(metrics["total_loss"]) and metrics["loss_reid"] >= 0
+        from uninext_tpu_torch.tools import vis_check
+        with tempfile.TemporaryDirectory() as root:
+            res = vis_check.main(["--steps", "2", "--n-train", "2", "--n-val", "1",
+                                  "--device", "cpu", "--out", root + "/vis.json"])
+        assert res["per_seed"][0]["vis_map"] is not None
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"))
         print("JAX_MODULES", bad)

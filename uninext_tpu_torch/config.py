@@ -302,7 +302,6 @@ class UninextConfig:
     rvos_temporal_weight: float = 0.0
 
 
-
 def image_joint_r50() -> UninextConfig:
     """Stage-2 flagship: R50, 900 queries, DINO two-stage, OTA, IoU branch.
 
@@ -312,6 +311,19 @@ def image_joint_r50() -> UninextConfig:
     base = UninextConfig()
     return dataclasses.replace(
         base, data=dataclasses.replace(base.data, crop_enabled=True))
+
+
+def video_joint_r50() -> UninextConfig:
+    """Stage-3: reid head + template machinery (video_joint_r50.yaml:2-37:
+    deformable reid head with detached inputs, 4-channel extra template
+    backbone, SOT P3-P6 feature fusion, frozen text encoder)."""
+    base = image_joint_r50()
+    return dataclasses.replace(
+        base, use_reid=True, use_deformable_reid=True,
+        n_layer_deformable_reid=2, detach_reid=True,
+        language=dataclasses.replace(base.language, freeze=True),
+        sot=dataclasses.replace(base.sot, extra_backbone_for_template=True,
+                                feature_fusion=True))
 
 
 def image_joint_vit_huge() -> UninextConfig:
@@ -337,3 +349,61 @@ def tiny_test_config() -> UninextConfig:
         data=DataConfig(max_insts=20, max_text_len=32, crop_enabled=False),
         compute_dtype="float32",
     )
+
+
+def tiny_video_test_config() -> UninextConfig:
+    """tiny_test_config + the stage-3 video towers (reid embeds for
+    MOT/VIS association, template machinery for SOT/VOS) — what the video
+    CLI drivers need from a test-scale model."""
+    base = tiny_test_config()
+    return dataclasses.replace(
+        base, use_reid=True,
+        sot=dataclasses.replace(base.sot, extra_backbone_for_template=True,
+                                feature_fusion=True))
+
+
+# ---- per-task evaluation presets (reference configs/eval-vid/*.yaml) ------
+# The 17 eval yamls vary only in TEST datasets + INPUT.MIN_SIZE_TEST (same
+# matrix for R50 / ConvNeXt-L / ViT-H); VOTS additionally switches the
+# meta-architecture to the mask-reporting SOT variant.
+EVAL_PRESETS = {
+    "vis": {"datasets": ("ytvis_2019_val",), "min_size_test": 480,
+            "max_size_test": 1333},
+    "ovis": {"datasets": ("ytvis_ovis_val",), "min_size_test": 720,
+             "max_size_test": 1333},          # "720 for ovis"
+    "vis21": {"datasets": ("ytvis_2021_val",), "min_size_test": 480,
+              "max_size_test": 1333},
+    "mot": {"datasets": ("bdd_box_track_val",), "min_size_test": 800,
+            "max_size_test": 1333},
+    "mots": {"datasets": ("bdd_seg_track_val",), "min_size_test": 800,
+             "max_size_test": 1333},
+    "rvos": {"datasets": ("rvos-refytb-val", "rvos-refdavis-val-0",
+                          "rvos-refdavis-val-1", "rvos-refdavis-val-2",
+                          "rvos-refdavis-val-3"),
+             "min_size_test": 480, "max_size_test": 1333},
+    "sot": {"datasets": ("sot_lasot_test", "sot_lasot_ext_test",
+                         "sot_trackingnet_test", "sot_tnl2k_test"),
+            "min_size_test": 800, "max_size_test": 1333},
+    "vots": {"datasets": ("sot_lasot_test", "sot_lasot_ext_test",
+                          "sot_trackingnet_test", "sot_tnl2k_test"),
+             "min_size_test": 800, "max_size_test": 1333,
+             "with_mask": True},              # UNINEXT_VOTS meta-arch
+    "vos": {"datasets": ("sot_ytbvos18_val", "sot_davis17_val"),
+            "min_size_test": 480, "max_size_test": 1333},
+    "coco": {"datasets": ("coco_2017_val",), "min_size_test": 800,
+             "max_size_test": 1333},
+    "refcoco": {"datasets": ("refcoco-unc-val", "refcoco-unc-testA",
+                             "refcoco-unc-testB"),
+                "min_size_test": 800, "max_size_test": 1333},
+}
+
+
+def eval_config(base: UninextConfig, task: str):
+    """Apply an eval preset: returns (cfg with the preset's test sizes,
+    dataset names tuple, with_mask flag)."""
+    p = EVAL_PRESETS[task]
+    cfg = dataclasses.replace(
+        base, data=dataclasses.replace(base.data,
+                                       min_size_test=p["min_size_test"],
+                                       max_size_test=p["max_size_test"]))
+    return cfg, p["datasets"], p.get("with_mask", False)

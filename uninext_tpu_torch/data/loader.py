@@ -1,5 +1,6 @@
-"""A copy of `uninext_tpu/data/loader.py` without the video pairs (the port
-imports nothing of the JAX package).
+"""A copy of `uninext_tpu/data/loader.py` (the port imports nothing of the
+JAX package): image batches and, from a video mapper, (key, ref) pair
+batches (`data/video.py:collate_video`).
 
 Multi-dataset weighted loader with static-shape bucketing.
 
@@ -25,6 +26,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 
 from .coco import MappedSample
+from .video import collate_video
 
 
 def collate(samples: Sequence[MappedSample]) -> Dict[str, np.ndarray]:
@@ -175,10 +177,14 @@ class MultiDatasetLoader:
 
         groups: Dict[tuple, List[MappedSample]] = {}
         for d, sample in mapped():
-            key = (d, sample.bucket)
+            # video mappers emit (key, ref) MappedSample pairs; bucket by the
+            # key frame (clip-consistent aug gives both frames one bucket)
+            is_pair = isinstance(sample, tuple)
+            key = (d, (sample[0] if is_pair else sample).bucket)
             groups.setdefault(key, []).append(sample)
             if len(groups[key]) == self.datasets[d][2]:
-                out = collate(groups.pop(key))
+                batch = groups.pop(key)
+                out = collate_video(batch) if is_pair else collate(batch)
                 if len(self.datasets[d]) > 3:
                     out["__task__"] = self.datasets[d][3]
                 yield out

@@ -1,5 +1,5 @@
-"""A copy of `uninext_tpu/data/mini_coco.py`, with its COCO and RefCOCO
-fixtures (the port imports nothing of the JAX package).
+"""A copy of `uninext_tpu/data/mini_coco.py`, with its COCO, YTVIS and
+RefCOCO fixtures (the port imports nothing of the JAX package).
 
 Mini COCO-format dataset generator: real JPEGs + real instances json.
 
@@ -111,6 +111,90 @@ def make_mini_coco(root: str, n_train: int = 32, n_val: int = 12,
             json.dump(js, f)
         out[f"{split}_json"] = jpath
         out[f"{split}_root"] = img_dir
+    return out
+
+
+def make_mini_ytvis(root: str, n_train: int = 8, n_val: int = 4,
+                    seed: int = 0, size: Tuple[int, int] = (192, 256),
+                    length: int = 6, max_objects: int = 2) -> Dict[str, str]:
+    """YTVIS-schema mini dataset: real JPEG frame dirs + {split}.json with
+    per-frame bboxes/polygon segmentations and track identity — objects move
+    linearly across frames so VIS association is actually exercised.
+    Layout: root/{split}/JPEGImages/<vid>/%05d.jpg + root/{split}.json.
+    (The referring R-VOS variant of the JAX package's fixture comes with the
+    R-VOS slice.)"""
+    rng = np.random.RandomState(seed)
+    out = {}
+    vid_id = 0
+    for split, n in (("train", n_train), ("val", n_val)):
+        img_root = os.path.join(root, split, "JPEGImages")
+        videos, annotations = [], []
+        aid = 1
+        for _ in range(n):
+            vid_id += 1
+            h, w = size
+            vname = f"vid{vid_id:03d}"
+            os.makedirs(os.path.join(img_root, vname), exist_ok=True)
+            objs = []
+            # this rng call order keeps seeded fixtures byte-identical to
+            # the JAX package's
+            n_obj = int(rng.randint(1, max_objects + 1))
+            for _o in range(n_obj):
+                cat = CATEGORIES[rng.randint(len(CATEGORIES))]
+                r = float(rng.uniform(18, 34))
+                objs.append({
+                    "cat": cat, "r": r,
+                    "cx": float(rng.uniform(r + 4, w - r - 4)),
+                    "cy": float(rng.uniform(r + 4, h - r - 4)),
+                    "vx": float(rng.uniform(-6, 6)),
+                    "vy": float(rng.uniform(-4, 4)),
+                    "color": tuple(int(c) for c in np.clip(
+                        np.array(_COLORS[cat["name"]], np.float32)
+                        + rng.randn(3) * 10, 0, 255)),
+                    "bboxes": [], "segs": [], "areas": [],
+                })
+            fns = []
+            for t in range(length):
+                yy, xx = np.mgrid[0:h, 0:w]
+                bg = (90 + 40 * np.sin(xx / 37.0) + 30 * np.cos(yy / 23.0)
+                      + rng.randn(h, w) * 12)
+                pil = Image.fromarray(np.clip(
+                    np.stack([bg] * 3, -1), 0, 255).astype(np.uint8))
+                draw = ImageDraw.Draw(pil)
+                for o in objs:
+                    cx = np.clip(o["cx"] + o["vx"] * t, o["r"],
+                                 w - o["r"])
+                    cy = np.clip(o["cy"] + o["vy"] * t, o["r"],
+                                 h - o["r"])
+                    poly = _polygon(o["cat"]["name"], float(cx), float(cy),
+                                    o["r"], rng)
+                    draw.polygon(list(zip(poly[0::2], poly[1::2])),
+                                 fill=o["color"])
+                    xs, ys = poly[0::2], poly[1::2]
+                    x0, y0 = max(min(xs), 0.0), max(min(ys), 0.0)
+                    x1, y1 = min(max(xs), float(w)), min(max(ys), float(h))
+                    o["bboxes"].append([x0, y0, x1 - x0, y1 - y0])
+                    o["segs"].append([poly])
+                    o["areas"].append(float((x1 - x0) * (y1 - y0)))
+                fn = f"{vname}/{t:05d}.jpg"
+                pil.save(os.path.join(img_root, fn), quality=92)
+                fns.append(fn)
+            videos.append({"id": vid_id, "height": h, "width": w,
+                           "length": length, "file_names": fns})
+            for o in objs:
+                annotations.append({
+                    "id": aid, "video_id": vid_id,
+                    "category_id": o["cat"]["id"],
+                    "bboxes": o["bboxes"], "segmentations": o["segs"],
+                    "areas": o["areas"], "iscrowd": 0})
+                aid += 1
+        js = {"videos": videos, "annotations": annotations,
+              "categories": CATEGORIES}
+        jpath = os.path.join(root, f"{split}.json")
+        with open(jpath, "w") as f:
+            json.dump(js, f)
+        out[f"{split}_json"] = jpath
+        out[f"{split}_root"] = img_root
     return out
 
 

@@ -23,9 +23,15 @@ Two places need care:
     is what a ConvTranspose2d bias can hold.
 
 The DN label encoder `dn_resizer` (training only) becomes `detr.resizer.*`,
-as in the reference checkpoint. Every JAX leaf must be consumed and every
-port parameter filled; anything else raises. The input is a tree of numpy arrays (or anything
-`np.asarray` takes), so this module needs no JAX.
+as in the reference checkpoint. The reid head of the video configs becomes
+`detr.reid_embed_head.*`: `reid_dec_{i}` (decoder layers) and
+`reid_ref_point_head` under `.0`, `reid_embed` (the MLP) under `.1`, or
+the MLP alone without the deformable head. The SOT/VOS template branch
+(`template_backbone`, `sot_fuser`, `adjust_layer`) is not ported: a tree
+that holds it is refused with an error that names it. Every JAX leaf must
+be consumed and every port parameter filled (but `load_jax_params`'s one
+exception, for a video tree's DN label encoder); anything else raises. The input is a tree of numpy arrays (or
+anything `np.asarray` takes), so this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ import torch
 ROOT = "detr.detr."
 BERT_ROOT = "text_encoder.body.model."
 DN_ROOT = "detr.resizer."        # the DN label encoder (JAX `dn_resizer`)
+REID_ROOT = "detr.reid_embed_head."  # the reid head of the video configs
 
 
 class _Leaves:
@@ -268,9 +275,38 @@ def fill_mask_head(sd, key, lv, path):
         _conv(sd, f"{key}mask_head.{n}.", lv, _j(path, f"mask_head/{n}"))
 
 
+def fill_reid(sd, key, lv, path):
+    """The reid head: [DeformableReidHead, MLP] when the tree has
+    `reid_dec_0`, else the MLP alone."""
+    if lv.has(_j(path, "reid_dec_0")):
+        i = 0
+        while lv.has(_j(path, f"reid_dec_{i}")):
+            fill_decoder_layer(sd, f"{key}reid_embed_head.0.layers.{i}.", lv,
+                               _j(path, f"reid_dec_{i}"))
+            i += 1
+        _mlp(sd, key + "reid_embed_head.0.ref_point_head.", lv,
+             _j(path, "reid_ref_point_head"))
+        _mlp(sd, key + "reid_embed_head.1.", lv, _j(path, "reid_embed"))
+    else:
+        _mlp(sd, key + "reid_embed_head.", lv, _j(path, "reid_embed"))
+
+
+# the template branch of the video configs, which the SOT/VOS slice brings
+TEMPLATE_BRANCH = ("template_backbone", "sot_fuser", "adjust_layer")
+
+
 def fill_model(sd, key, lv, path):
     """The whole detection model (`UninextDETR` of the JAX package), with
-    the backbone the tree holds and, if it has one, the mask head."""
+    the backbone the tree holds and, if it has them, the mask head and the
+    reid head. A tree with the SOT/VOS template branch is refused."""
+    held = [n for n in TEMPLATE_BRANCH if lv.has(_j(path, n))]
+    if held:
+        raise ValueError(
+            f"the JAX tree holds the SOT/VOS template branch ({', '.join(held)} of "
+            f"{', '.join(TEMPLATE_BRANCH)}), which the port does not build yet: the "
+            "SOT/VOS slice brings template_backbone, sot_fuser and adjust_layer. "
+            "Load a tree initialised through the video detection path "
+            "(forward_video_train), which has none of them.")
     fill_backbone = fill_resnet if lv.has(_j(path, "backbone/stem_conv")) else fill_vit
     fill_backbone(sd, key + ROOT + "backbone.0.backbone.", lv, _j(path, "backbone"))
     i = 0
@@ -281,10 +317,16 @@ def fill_model(sd, key, lv, path):
     fill_bert(sd, key + BERT_ROOT, lv, _j(path, "bert"))
     fill_transformer(sd, key + ROOT + "transformer.", lv, _j(path, "transformer"))
     fill_heads(sd, key + ROOT, lv, path)
-    _dense(sd, key + DN_ROOT + "fc.", lv, _j(path, "dn_resizer/fc"))
-    _norm(sd, key + DN_ROOT + "layer_norm.", lv, _j(path, "dn_resizer/ln"))
+    # a tree of the video training path has no DN label encoder (that step
+    # makes no DN queries, so flax never creates `dn_resizer`); every other
+    # tree must hold it
+    if lv.has(_j(path, "dn_resizer")) or not lv.has(_j(path, "reid_embed")):
+        _dense(sd, key + DN_ROOT + "fc.", lv, _j(path, "dn_resizer/fc"))
+        _norm(sd, key + DN_ROOT + "layer_norm.", lv, _j(path, "dn_resizer/ln"))
     if lv.has(_j(path, "controller")):
         fill_mask_head(sd, key + "detr.", lv, path)
+    if lv.has(_j(path, "reid_embed")):
+        fill_reid(sd, key + "detr.", lv, path)
 
 
 _RESNET_KEY = re.compile(r"detr\.detr\.backbone\.0\.backbone\.(?:stem\.conv1|"
@@ -314,6 +356,10 @@ _MODULE_PATHS = tuple((re.compile(p), r) for p, r in (
     (r"detr\.detr\.backbone\.0\.backbone\.(.*)", r"backbone/\1"),
     (r"detr\.controller\.layers\.(\d+)\.(.*)", r"controller/layer_\1/\2"),
     (r"detr\.mask_head\.(.*)", r"mask_head/\1"),
+    (r"detr\.reid_embed_head\.0\.layers\.(\d+)\.(.*)", r"reid_dec_\1/\2"),
+    (r"detr\.reid_embed_head\.0\.ref_point_head\.layers\.(\d+)\.(.*)",
+     r"reid_ref_point_head/layer_\1/\2"),
+    (r"detr\.reid_embed_head\.(?:1\.)?layers\.(\d+)\.(.*)", r"reid_embed/layer_\1/\2"),
     (r"text_encoder\.body\.model\.(.*)", r"bert/\1"),
     (r"detr\.resizer\.(.*)", r"dn_resizer/\1"),
     (r"detr\.detr\.transformer\.encoder\.vl_layers\.(\d+)\.b_attn\.(.*)",
@@ -360,7 +406,17 @@ def state_dict_from_jax(params, fill: Callable = fill_model
 def load_jax_params(module: torch.nn.Module, params,
                     fill: Callable = fill_model) -> None:
     """Fill `module` (by default a whole `UninextDETR`) from a JAX tree.
-    Raises if a JAX leaf is left over or a port parameter is not filled."""
+    Raises if a JAX leaf is left over or a port parameter is not filled,
+    with one exception: a video tree (one with the reid head) initialised
+    through the video training path has no DN label encoder (that step makes
+    no DN queries, so flax never creates `dn_resizer`), and the port's
+    `detr.resizer.*` then keeps the values it has. An image tree without
+    `dn_resizer` raises."""
     sd = state_dict_from_jax(params, fill)
     with torch.no_grad():
-        module.load_state_dict(sd, strict=True)
+        missing, unexpected = module.load_state_dict(sd, strict=False)
+    if fill is fill_model and any(k.startswith(REID_ROOT) for k in sd):
+        missing = [k for k in missing if not k.startswith(DN_ROOT)]
+    if missing or unexpected:
+        raise RuntimeError(f"port parameters not filled: {missing}; "
+                           f"keys the port does not have: {unexpected}")

@@ -1,7 +1,9 @@
 """The train step, mirroring `uninext_tpu/engine/train.py`: batch -> loss
 dict (detection or grounding, with the mask losses when the targets carry
 masks) -> weighted sum -> backward -> global-norm clip -> per-group AdamW,
-once every `grad_accum_steps` micro-steps. Compute runs in the config's
+once every `grad_accum_steps` micro-steps. A (key, ref) pair batch of the
+video configs (`images_key` in place of `images`) takes the same step
+through `UninextDETR.forward_video_train`. Compute runs in the config's
 dtype (bf16) with fp32 parameters and optimizer state, as in the JAX
 package; no loss scaling. The loop around it is `engine/trainer.py`.
 """
@@ -67,13 +69,28 @@ def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
                    task: str = "detection", accumulate: bool = False):
     """Forward in train mode, the weighted total and its backward: the
     gradients land in the parameters' `.grad`, replacing what is there
-    unless `accumulate`. Returns (total, losses)."""
+    unless `accumulate`. A pair batch (`data/video.py:collate_video` on the
+    device: images_key, images_ref, targets_key, targets_ref and the key
+    frame's img_mask, image_sizes and text) goes through
+    `forward_video_train` (`uninext_tpu/engine/train.py:
+    make_video_train_step`): the key frame's losses and the reid losses.
+    Returns (total, losses)."""
+    video = "images_key" in batch
+    if video and task == "sot":
+        raise NotImplementedError("the SOT/VOS training step comes with the "
+                                  "SOT/VOS slice (forward_sot_train)")
     if not accumulate:
         model.zero_grad(set_to_none=True)
-    losses = model.forward_train(batch["images"], batch["img_mask"],
-                                 batch["image_sizes"], batch["text_ids"],
-                                 batch["text_mask"], batch["targets"],
-                                 generator=generator, dn_noise=dn_noise, task=task)
+    if video:
+        losses = model.forward_video_train(
+            batch["images_key"], batch["img_mask"], batch["image_sizes"],
+            batch["text_ids"], batch["text_mask"], batch["targets_key"],
+            batch["targets_ref"], batch["images_ref"], task=task, generator=generator)
+    else:
+        losses = model.forward_train(batch["images"], batch["img_mask"],
+                                     batch["image_sizes"], batch["text_ids"],
+                                     batch["text_mask"], batch["targets"],
+                                     generator=generator, dn_noise=dn_noise, task=task)
     total = weighted_total(losses, weights)
     total.backward()
     return total, losses
@@ -83,11 +100,13 @@ def train_step(state: TrainState, batch: Dict, task: str = "detection"
                ) -> Dict[str, torch.Tensor]:
     """One micro-step on `batch` (images (B, H, W, 3), img_mask,
     image_sizes, text_ids, text_mask, targets as `forward_train` takes
-    them); the optimizer updates on every `grad_accum_steps`-th. Returns the
-    total and every loss, and on an update the grad norm before the clip,
-    as tensors on the device. The step reads to the host only the encoder
-    matching costs (Hungarian), simOTA's fix-up checks and the clip
-    decision."""
+    them, or a pair batch as `loss_and_grads` says); the optimizer updates
+    on every `grad_accum_steps`-th. Returns the total and every loss, and on
+    an update the grad norm before the clip, as tensors on the device. The
+    step reads to the host only the encoder matching costs (Hungarian),
+    simOTA's fix-up checks and the clip decision. With a frozen language
+    model its parameters get no gradient; the optimizer takes a zero
+    gradient for them and still decays them, as optax's chain does."""
     weights = loss_weights(state.model.cfg)
     total, losses = loss_and_grads(state.model, batch, weights, state.generator,
                                    task=task, accumulate=state.optimizer.accumulating)
@@ -97,3 +116,4 @@ def train_step(state: TrainState, batch: Dict, task: str = "detection"
     if grad_norm is not None:
         out["grad_norm"] = grad_norm
     return out
+

@@ -4,6 +4,10 @@
 (`engine/hooks.py`: timer, writers, checkpoints, learning rate, memory,
 profiler, evaluation) and `resume_or_load`.
 
+With `video=True` the batches are (key, ref) pairs
+(`data/video.py:collate_video`), which `engine/train.py:train_step` takes
+through the two-frame forward.
+
 The JAX trainer's persistent compilation cache, device mesh, chunked
 steps (a scan of jitted steps) and TensorBoard writer do not carry over:
 each micro-step here is one eager `train_step`, and metrics go to the
@@ -27,16 +31,21 @@ from .hooks import default_hooks
 from .optimizer import lr_schedule
 from .train import build_train_state, train_step
 
+TARGET_KEYS = ("targets", "targets_key", "targets_ref")
+
 
 def to_device(batch: Dict, device: torch.device, has_masks: bool) -> Dict:
-    """A collated numpy batch (`data/loader.py:collate`) as tensors on
-    `device`, text ids as int64, with `targets["has_masks"]` set. Host-side
-    routing keys ("__task__") stay behind."""
+    """A collated numpy batch (`data/loader.py:collate`, or a pair batch of
+    `data/video.py:collate_video` with `targets_key` and `targets_ref`) as
+    tensors on `device`, text ids as int64, with `has_masks` set in each
+    targets dict. Host-side routing keys ("__task__") stay behind."""
     mv = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
-    out = {k: mv(v) for k, v in batch.items() if k not in ("targets", "__task__")}
+    out = {k: mv(v) for k, v in batch.items() if k not in TARGET_KEYS + ("__task__",)}
     out["text_ids"] = out["text_ids"].long()
-    out["targets"] = {k: mv(v) for k, v in batch["targets"].items()}
-    out["targets"]["has_masks"] = has_masks and "masks" in batch["targets"]
+    for key in TARGET_KEYS:
+        if key in batch:
+            out[key] = {k: mv(v) for k, v in batch[key].items()}
+            out[key]["has_masks"] = has_masks and "masks" in batch[key]
     return out
 
 
@@ -44,6 +53,7 @@ class Trainer:
     def __init__(self, cfg: UninextConfig, loader: Iterator,
                  output_dir: str = "./output", task: str = "detection",
                  has_masks: bool = True, device="cuda", seed: int = 0,
+                 video: bool = False,
                  eval_fn: Optional[Callable] = None,
                  eval_period: int = 5000,
                  log_period: int = 20,
@@ -52,11 +62,14 @@ class Trainer:
         """`loader` yields collated batches (a "__task__" key routes a batch
         to its task, else `task`). The model gets random weights from
         `seed` on `device` (the card unless the caller asks for another).
-        `eval_fn(model) -> dict` runs every `eval_period` updates."""
+        `eval_fn(model) -> dict` runs every `eval_period` updates. With
+        `video` the batches must be (key, ref) pairs, without it image
+        batches; a batch of the other kind raises."""
         self.cfg = cfg
         self.loader = loader
         self.task = task
         self.has_masks = has_masks
+        self.video = video
         self.device = torch.device(device)
         self.accum = max(1, cfg.solver.grad_accum_steps)
         self.storage = EventStorage()
@@ -100,6 +113,9 @@ class Trainer:
             self.storage.iter = it
             for h in self.hooks:
                 h.before_step(self)
+            if ("images_key" in batch) != self.video:
+                raise ValueError(f"Trainer(video={self.video}) was given "
+                                 f"{'an image' if self.video else 'a pair'} batch")
             t0 = time.perf_counter()
             metrics = train_step(self.state, to_device(batch, self.device, self.has_masks),
                                  batch.get("__task__", self.task))

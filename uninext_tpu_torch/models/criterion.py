@@ -1,6 +1,7 @@
 """Set-prediction losses, mirroring `uninext_tpu/models/criterion.py`: the
-token-level focal loss, L1, GIoU and the IoU branch, and the CondInst mask
-losses (focal and dice). BoxInst's box-supervised mask losses
+token-level focal loss, L1, GIoU and the IoU branch, the CondInst mask
+losses (focal and dice) and the video configs' contrastive reid loss.
+BoxInst's box-supervised mask losses
 (`loss_masks_boxinst` there) are not ported.
 
 Targets are padded to (B, G) with a validity mask and a matching is a
@@ -97,3 +98,42 @@ def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
     focal = sigmoid_focal_loss(pred, tgt, cfg.focal_alpha, cfg.focal_gamma).mean(-1) * v
     dice = dice_loss_elem(pred, tgt) * v
     return {"loss_mask": focal.sum() / num_boxes, "loss_dice": dice.sum() / num_boxes}
+
+
+def loss_reid_static(contrast: torch.Tensor, labels3: torch.Tensor,
+                     row_valid: torch.Tensor, cos_sim: torch.Tensor
+                     ) -> Dict[str, torch.Tensor]:
+    """The contrastive reid loss of `uninext_tpu/models/criterion.py:181`.
+
+    contrast (R, Q): dot products of each key-frame gt's query embedding
+    (rows) with every ref-frame query's; labels3 (R, Q): 1 positive, 0
+    negative, -1 left out; row_valid (R,); cos_sim (R, Q): the cosines.
+
+    Per row, log(1 + sum over positives i and negatives j of
+    exp(c_j - c_i)), the JAX package's logsumexp over the Q*Q differences
+    and a zero, computed as softplus(LSE_j(c_j) + LSE_i(-c_i)) without the
+    (R, Q*Q) tensor. A row with no positive or no negative (or not valid)
+    adds 0, as there, and gets no gradient. The aux term is the weighted
+    mean of (cos - label)^2, negatives weighted to ~10x the positive count."""
+    pos = labels3 == 1
+    neg = labels3 == 0
+    row_valid = row_valid.float()
+    rv = row_valid[:, None] > 0
+    pos_v, neg_v = pos & rv, neg & rv
+    has = pos_v.any(-1) & neg_v.any(-1)
+    low = torch.finfo(contrast.dtype).min       # a finite stand-in for -inf
+    lse_neg = torch.logsumexp(torch.where(neg_v, contrast, low), -1)
+    lse_pos = torch.logsumexp(torch.where(pos_v, -contrast, low), -1)
+    x = torch.where(has, lse_neg + lse_pos, 0.0)
+    contras = torch.where(has, torch.nn.functional.softplus(x), 0.0)
+    n = row_valid.sum().clamp(min=1.0)
+    loss_contrast = (contras * row_valid).sum() / n
+
+    n_pos = pos.sum(-1).clamp(min=1)
+    n_neg = neg.sum(-1).clamp(min=1)
+    w_neg = (10.0 * n_pos / n_neg).clamp(max=1.0)[:, None]
+    w = torch.where(pos, 1.0, torch.where(neg, w_neg, 0.0))
+    err = (cos_sim - pos.float()) ** 2
+    aux_per_row = (err * w).sum(-1) / w.sum(-1).clamp(min=1e-6)
+    loss_aux = (aux_per_row * row_valid).sum() / n
+    return {"loss_reid": loss_contrast, "loss_reid_aux": loss_aux}

@@ -1,16 +1,24 @@
 """UninextDETR, mirroring `uninext_tpu/models/detr.py`, with the ResNet-50
 and ViT-H backbones: inference for detection and grounding (`forward`), the
-masks of selected queries (`predict_masks`), and the detection training
-losses (`forward_train`, without the mask losses).
+masks of selected queries (`predict_masks`), the reid embeddings of the
+video configs (`compute_reid`, the deformable reid head), the detection
+and grounding training losses (`forward_train`) and the two-frame (key,
+ref) video training losses (`forward_video_train`).
 
     (images, img_mask, prompt tokens) -> backbone -> input projections ->
     BERT prompt -> VL-fused deformable transformer (two-stage) ->
     per-layer VL alignment logits, refined boxes and IoU logits
     [-> masks: the dynamic mask head on the encoder memory, for the queries
         a caller selected (`models/postprocess.py`)]
+    [-> reid: a small deformable decoder over the encoder memory, then an
+        MLP, on every query (`use_reid`)]
     [-> training: DN queries, per-layer simOTA / encoder Hungarian
         matching, focal, L1, GIoU and IoU-branch losses, and the dynamic
         masks of the matched queries against the gt masks (focal, dice)]
+    [-> video training: key and ref frames through one backbone pass and
+        two transformer passes, the key frame's losses, and the contrastive
+        reid loss between the key frame's matched queries and the ref
+        frame's queries]
 
 Public tensors keep the JAX layouts: images (B, H, W, 3) NHWC, normalised
 and padded to a multiple of 32; `img_mask` (B, H, W) True for padding.
@@ -20,16 +28,18 @@ Module nesting follows the reference UNINEXT checkpoint, so
 `detr.detr.backbone.0.backbone.*` (detectron2's ResNet or D2ViT),
 `detr.detr.input_proj.*`, `detr.detr.transformer.*`,
 `detr.detr.{class_embed,bbox_embed,iou_head}.*`, `detr.controller.*` and
-`detr.mask_head.*` (the mask head), `detr.resizer.*` (the DN label encoder)
-and `text_encoder.body.model.*` (HF BERT). `engine/convert.py` fills them
-from a JAX parameter tree.
+`detr.mask_head.*` (the mask head), `detr.resizer.*` (the DN label encoder),
+`detr.reid_embed_head.*` (the reid head: `.0` the deformable decoder and
+`.1` the MLP, or the MLP alone) and `text_encoder.body.model.*` (HF
+BERT). `engine/convert.py` fills them from a JAX parameter tree.
 
 Random numbers of training (DN box noise, drop-path masks) come from an
 explicit `torch.Generator`, or the DN noise from the caller; the JAX
 package's `jax.random` stream is not reproduced.
 
-Not ported yet: the ConvNeXt backbone, BoxInst's mask losses, reid,
-SOT/VOS templates and video training.
+Not ported yet: the ConvNeXt backbone, BoxInst's mask losses and the
+SOT/VOS template branch (`template_backbone`, `sot_fuser`, `adjust_layer`,
+`encode_template`, `forward_sot_train`).
 """
 from __future__ import annotations
 
@@ -47,13 +57,13 @@ from ..utils.misc import agg_lang_feat, inverse_sigmoid
 from . import criterion as crit
 from .bert import BertModel
 from .heads import StillClassifier, VLAlign
-from .layers import MLP, Conv2d, FeatureResizer, GroupNorm, Linear
+from .layers import MLP, Conv2d, FeatureResizer, GroupNorm, Linear, get_sine_pos_embed
 from .mask_head import MaskHeadSmallConv, dynamic_mask_forward, num_gen_params
 from .matcher import hungarian_match, ota_cost_and_iou, simota_match, vl_cost_matrix
 from .position_encoding import position_embedding_sine
 from .postprocess import take_queries
 from .resnet import ResNet
-from .transformer import UninextTransformer
+from .transformer import DecoderLayer, UninextTransformer
 from .vit import ViT
 
 
@@ -207,10 +217,25 @@ class DeformableDETR(nn.Module):
                 nn.init.constant_(head.bias, bias)
 
 
+class DeformableReidHead(nn.Module):
+    """The reference's DeformableReidHead (deformable_transformer_dino.py
+    :504-528): `n_layers` decoder layers over the encoder memory, their
+    query positions from the sine embedding of the reference boxes."""
+
+    def __init__(self, cfg: UninextConfig, dtype: torch.dtype):
+        super().__init__()
+        t = cfg.transformer
+        self.layers = nn.ModuleList(DecoderLayer(t, dtype)
+                                    for _ in range(cfg.n_layer_deformable_reid))
+        self.ref_point_head = MLP(4 * 128, t.d_model, t.d_model, 2)
+
+
 class _DNWrapper(nn.Module):
     """The reference's DDETRSegmUniDN level: the DETR, the DN label encoder
-    (`resizer`, language pool -> d_model) and, with the mask head enabled,
-    the `controller` (query -> dynamic mask parameters) and `mask_head`."""
+    (`resizer`, language pool -> d_model), with the mask head enabled the
+    `controller` (query -> dynamic mask parameters) and `mask_head`, and
+    with `use_reid` the reid head `reid_embed_head`: [DeformableReidHead,
+    MLP] with `use_deformable_reid`, else the MLP alone."""
 
     def __init__(self, cfg: UninextConfig, dtype: torch.dtype):
         super().__init__()
@@ -220,6 +245,10 @@ class _DNWrapper(nn.Module):
         if cfg.mask_head.enabled:
             self.controller = MLP(d, d, num_gen_params(cfg.mask_head, d // 32), 3)
             self.mask_head = MaskHeadSmallConv(d, dtype)
+        if cfg.use_reid:
+            mlp = MLP(d, d, d, cfg.reid_layers)
+            self.reid_embed_head = (nn.ModuleList([DeformableReidHead(cfg, dtype), mlp])
+                                    if cfg.use_deformable_reid else mlp)
 
 
 class UninextDETR(nn.Module):
@@ -310,7 +339,9 @@ class UninextDETR(nn.Module):
         reuse it. Returns the last decoder layer's logits, boxes and IoU
         logits with what `predict_masks` takes: `hs`, `base_reference`, the
         encoder `memory` and the level shapes of this input,
-        `spatial_shapes`. The other layers' heads feed only the losses."""
+        `spatial_shapes`. The other layers' heads feed only the losses. With
+        `use_reid`, `pred_embeds` (B, Q, d_model) fp32: the reid embedding
+        of every query (`compute_reid`)."""
         if task not in ("detection", "grounding"):
             raise NotImplementedError(f"task {task!r} is not ported yet")
         t = self.cfg.transformer
@@ -326,7 +357,37 @@ class UninextDETR(nn.Module):
         out = self._decode_outputs(trans, t.dec_layers - 1, task, lang["masks"])
         out["memory"] = trans["memory"]
         out["spatial_shapes"] = tuple((s.shape[1], s.shape[2]) for s in srcs)
+        if self.cfg.use_reid:
+            out["pred_embeds"] = self.compute_reid(
+                out["hs"], trans["inter_references"][-1], trans,
+                out["spatial_shapes"])
         return out
+
+    def compute_reid(self, hs: torch.Tensor, refs: torch.Tensor, trans: Dict,
+                     spatial_shapes: Tuple[Tuple[int, int], ...]) -> torch.Tensor:
+        """Reid embeddings (B, Q, d_model) fp32 of the queries' decoder states
+        hs (B, Q, C) with their refined boxes refs (B, Q, 4): with
+        `use_deformable_reid` the deformable reid decoder first attends to
+        the encoder memory of `trans` (its `memory`, `mask_flatten` and
+        `valid_ratios`), then the MLP. `detach_reid` stops the gradient of
+        hs; refs never carry one into the deformable decoder; the memory
+        keeps its gradient, so the reid loss reaches the encoder
+        (`uninext_tpu/models/detr.py:852`)."""
+        c = self.cfg
+        x = hs.detach() if c.detach_reid else hs
+        head = self.detr.reid_embed_head
+        if not c.use_deformable_reid:
+            return head(x)
+        deform, mlp = head
+        refs = refs.detach()
+        vr2 = torch.cat([trans["valid_ratios"]] * 2, -1)[:, None]
+        for layer in deform.layers:
+            ref_input = refs[:, :, None] * vr2
+            qpos = deform.ref_point_head(
+                get_sine_pos_embed(ref_input[:, :, 0, :])).to(x.dtype)
+            x = layer(x, qpos, ref_input, trans["memory"], spatial_shapes,
+                      trans["mask_flatten"])
+        return mlp(x)
 
     def predict_masks(self, memory: torch.Tensor,
                       spatial_shapes: Tuple[Tuple[int, int], ...],
@@ -408,6 +469,92 @@ class UninextDETR(nn.Module):
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         return self.compute_losses(layers, trans, targets, lang["masks"], dn_q2g,
                                    task, image_sizes, spatial_shapes)
+
+    def forward_video_train(self, images_key: torch.Tensor, img_mask: torch.Tensor,
+                            image_sizes: torch.Tensor, text_ids: torch.Tensor,
+                            text_mask: torch.Tensor, targets_key: Dict[str, torch.Tensor],
+                            targets_ref: Dict[str, torch.Tensor], images_ref: torch.Tensor,
+                            task: str = "detection",
+                            generator: Optional[torch.Generator] = None
+                            ) -> Dict[str, torch.Tensor]:
+        """The two-frame (key, ref) training losses of
+        `uninext_tpu/models/detr.py:forward_video_train`: one backbone pass
+        over the 2B clip, a transformer pass for each frame (no DN queries),
+        the losses of `forward_train` on the key frame, and `loss_reid` /
+        `loss_reid_aux` between the key frame's best query per gt (simOTA on
+        the last layer) and every ref-frame query: positives are the ref
+        queries simOTA gives that gt at k = 10, those it gives at k = 100
+        and no other gt are left out, the rest are negatives. Slot i of
+        targets_key and targets_ref is the same object; a row counts where
+        the object is valid in both frames. Both frames share `img_mask`.
+        The ref frame's decoder gets no gradient (its heads, references and,
+        with `detach_reid`, its states are stopped); the reid head's
+        attention to both frames' memories reaches both encoders."""
+        c = self.cfg
+        if not c.use_reid:
+            raise ValueError("video training needs a config with use_reid")
+        if task not in ("detection", "grounding"):
+            raise NotImplementedError(f"video task {task!r} is not ported yet")
+        t = c.transformer
+        B = images_key.shape[0]
+        lang = self.encode_text(text_ids, text_mask)
+        if c.language.freeze:
+            lang = {k: v.detach() for k, v in lang.items()}
+        srcs, masks, poses = self.encode_image(
+            torch.cat([images_key, images_ref]), torch.cat([img_mask, img_mask]),
+            train=True, generator=generator)
+        core = self.core
+        heads = dict(enc_class_head=core.class_embed[t.dec_layers],
+                     enc_bbox_head=core.bbox_embed[t.dec_layers],
+                     bbox_heads=core.bbox_embed[:t.dec_layers],
+                     remat_encoder=c.remat_encoder)
+        trans_k, trans_r = (
+            core.transformer([x[sl] for x in srcs], [m[sl] for m in masks],
+                             [p[sl] for p in poses], lang["hidden"], lang["masks"],
+                             **heads)
+            for sl in (slice(None, B), slice(B, None)))
+        layers = [self._decode_outputs(trans_k, lvl, task, lang["masks"])
+                  for lvl in range(t.dec_layers)]
+        spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
+        losses = self.compute_losses(layers, trans_k, targets_key, lang["masks"], None,
+                                     task, image_sizes, spatial_shapes)
+
+        valid_k, valid_r = targets_key["valid"], targets_ref["valid"]
+        last = core.class_embed[t.dec_layers - 1]
+        if task == "grounding":
+            pm_k, pm_r = valid_k[..., None], valid_r[..., None]
+            ref_lang = agg_lang_feat(trans_r["lang_hidden"], lang["masks"])[:, None]
+        else:
+            pm_k = targets_key["positive_map"] & valid_k[..., None]
+            pm_r = targets_ref["positive_map"] & valid_r[..., None]
+            ref_lang = trans_r["lang_hidden"]
+        with torch.no_grad():
+            cost_k, iou_k = ota_cost_and_iou(layers[-1]["pred_logits"],
+                                             layers[-1]["pred_boxes"], pm_k,
+                                             targets_key["boxes"], valid_k)
+            _, g2q_key = simota_match(cost_k, iou_k, valid_k)
+            cost_r, iou_r = ota_cost_and_iou(last(trans_r["hs"][-1], ref_lang),
+                                             trans_r["inter_references"][-1], pm_r,
+                                             targets_ref["boxes"], valid_r)
+            q2g_pos, _ = simota_match(cost_r, iou_r, valid_r, 10)
+            q2g_wide, _ = simota_match(cost_r, iou_r, valid_r, 100)
+        key_embeds = self.compute_reid(trans_k["hs"][-1], trans_k["inter_references"][-1],
+                                       trans_k, spatial_shapes)
+        ref_embeds = self.compute_reid(trans_r["hs"][-1], trans_r["inter_references"][-1],
+                                       trans_r, spatial_shapes)
+        G, Q = valid_k.shape[1], key_embeds.shape[1]
+        g_idx = torch.arange(G, device=valid_k.device)[None, :, None]
+        labels3 = torch.where(q2g_pos[:, None] == g_idx, 1,
+                              torch.where(q2g_wide[:, None] == g_idx, -1, 0))
+        key_sel = take_queries(key_embeds, g2q_key.clamp(min=0))      # (B, G, C)
+        contrast = torch.einsum("bgc,bqc->bgq", key_sel, ref_embeds)
+        norm = lambda x: x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp(min=1e-9)
+        cos = torch.einsum("bgc,bqc->bgq", norm(key_sel), norm(ref_embeds))
+        row_valid = (valid_k & valid_r).float()
+        losses.update(crit.loss_reid_static(
+            contrast.reshape(B * G, Q), labels3.reshape(B * G, Q),
+            row_valid.reshape(B * G), cos.reshape(B * G, Q)))
+        return losses
 
     def compute_losses(self, layers: List[Dict[str, torch.Tensor]], trans,
                        targets: Dict[str, torch.Tensor], lang_mask: torch.Tensor,

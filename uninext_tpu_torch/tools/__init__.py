@@ -8,9 +8,10 @@ Each runs on the card by default:
     python -m uninext_tpu_torch.tools.dma_probe
 
 and `kernel_times`, which times the NMS kernel and fold B (see its
-docstring), and `ap_check`, which trains `image_joint_r50` on the in-repo
+docstring), `ap_check`, which trains `image_joint_r50` on the in-repo
 mini-COCO and reports its AP (`tools/real_ap_check.py --flagship`'s
-protocol).
+protocol), and `vis_check`, which trains a video config on the in-repo
+mini-YTVIS and reports its track mAP (`tools/real_vis_check.py`'s).
 """
 import torch
 
