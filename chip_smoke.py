@@ -4,6 +4,8 @@ serving and training, R50's three serving paths (detection, instance masks,
 REC/RES), its training step and its training loop with checkpoints and COCO
 evaluation, the video family of `video_joint_r50` (VIS, MOT and MOTS
 serving, the two-frame training step and the video loop to a track mAP),
+its annotation-prompt family (SOT, VOS, R-VOS serving, the SOT training
+step, the ViT-H SOT/VOS frame step and the SOT loop to an AUC and a J&F),
 and the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
@@ -103,6 +105,40 @@ nonzero):
      for 10 steps, `VISDriver` and `evaluate_ytvis` on the val videos;
      launches asserted as path "video_loop"; then MSDA and MSDA-bwd against
      their plain versions at every shape the loop gave them.
+ 13. SOT, VOS and R-VOS: `video_joint_r50()` at full width with the
+     template branch (the 4-channel template R50 and the P3-P6 fuser: a
+     256 crop is a 1024-token prompt, 2048 with the second template):
+     `SOTDriver` over 6 frames at 800x1216 with online updates every 2
+     frames; `VOSDriver` over 6 frames at 480x736 with 2 objects (the
+     second from frame 2) and `inference_on_3f`; `RVOSDriver` over 6
+     frames at 480x736 with a 20-token expression at temporal weight 0 and
+     0.3; `run_refdavis_offline` (2 objects x 2 expressions, 3 frames).
+     The update, refresh and VOS thresholds are 0 so that every branch
+     runs with random weights. Template encode times, per-frame latency,
+     peak memory; launches per frame step asserted (SOT, VOS: MSDA 12, the
+     reid head skipped; R-VOS: 14; NMS 0), as paths "sot", "vos", "rvos";
+     MSDA against its plain version at every input these paths gave it.
+ 14. SOT training: `train_step(task="sot")` on a pair batch at bs=2,
+     800x1216 with masks, 1 warm-up and 2 timed steps: launches per step
+     asserted (MSDA 18 of which 6 recomputes, MSDA-bwd 12), as path
+     "sot_training"; a res3 convolution of the template R50, `sot_fuser`
+     and `adjust_layer` move, the template R50's stem and res2 (and the
+     whole frozen group) stay bit-equal, the frozen BERT decays as in 11;
+     MSDA and MSDA-bwd against their plain versions at the step's shapes.
+ 15. ViT-H SOT/VOS: `video_joint_vit_huge()` at full width with the
+     4-channel ViT-H template backbone: `VOSDriver`, one object, 4 frames
+     at 480x736 and 4 at 800x1216 (a template encode and a frame step with
+     the mask): kernel A asserted at 32 launches per backbone pass, as path
+     "sot_vith"; kernel A against its plain version, with its time, bound
+     and SDPA's, at the template's shapes (global 1x16x16, 4 windows) and
+     the 480x736 frame's (global 1x30x46, 12 windows).
+ 16. SOT loop: a single-object mini-YTVIS of 4 + 2 videos of 8 frames
+     (`tools/sot_check.py --flagship`'s settings), `Trainer(video=True,
+     task="sot")` for 10 steps, `SOTDriver` + `evaluate_sot` and
+     `VOSDriver` + `evaluate_davis` on the val videos (AUC and J&F
+     finite), one referring val video through `RVOSDriver`; launches
+     asserted as path "sot_loop"; MSDA and MSDA-bwd against their plain
+     versions at every shape the loop gave them.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -132,6 +168,11 @@ VIDEO_FRAMES = 6
 VIDEO_TRAIN_STEPS = 2
 VIDEO_LOOP_STEPS = 10
 VIDEO_LOOP_VIDEOS = (4, 2)  # train and val videos of the loop's mini-YTVIS
+SOT_HW = (800, 1216)       # bench.py:bench_sot's SOT size
+SOT_FRAMES = 6
+SOT_TRAIN_STEPS = 2
+SOT_LOOP_STEPS = 10
+SOT_LOOP_VIDEOS = (4, 2)   # train and val videos of the loop's single-object mini-YTVIS
 # NVIDIA H100 SXM data sheet, dense, at 700 W: the bound of a kernel is the
 # larger of its bytes over HBM_BPS and its operations over the peak of
 # their type (bf16 tensor cores for the attention products, fp32 CUDA
@@ -1399,7 +1440,8 @@ def _check_msda_calls(calls, need_grad=True, label="train loop"):
     """MSDA against its plain version at every (B, level shapes, Lq, dtype)
     in `calls`, and MSDA-bwd against autograd through the plain version at
     those taken with a gradient, on random values and locations shaped like
-    the model's (`_msda_model_set`), at phase_kernels' and
+    the model's (`_msda_model_set`; for the backward moved off the pixel
+    centres, `_off_centres`), at phase_kernels' and
     phase_backward_kernels' tolerances. With `need_grad`, fails if no call
     had a gradient. Returns each kernel's largest errors and the number of
     shapes held."""
@@ -1422,9 +1464,12 @@ def _check_msda_calls(calls, need_grad=True, label="train loop"):
         fwd["loop_shapes"] += 1
         line = f"[{label}] {what}: MSDA max_abs_err {err:.3g} (tol {tol_fwd[dt]})"
         if grad:
+            # off the pixel centres, where the location gradient jumps and
+            # grid_sample's rescale through [-1, 1] may land on the other side
             cot = torch.randn(B, Lq, M * D, device="cuda", generator=g).to(dt)
-            errs, rels, _ = _msda_bwd_check(f"at the {label}'s {what}", value, shapes, loc,
-                                            att, cot, tol_bwd[dt], plain_ms=False)
+            errs, rels, _ = _msda_bwd_check(f"at the {label}'s {what}", value, shapes,
+                                            _off_centres(loc, shapes), att, cot,
+                                            tol_bwd[dt], plain_ms=False)
             bwd["loop_max_abs_err"] = max(bwd["loop_max_abs_err"], *errs)
             bwd["loop_max_rel_err"] = max(bwd["loop_max_rel_err"], *rels)
             bwd["loop_shapes"] += 1
@@ -2075,6 +2120,535 @@ def phase_video_loop():
     return launches, checks
 
 
+def _watch_calls(drv, attr, counters):
+    """Wrap a driver's `attr` (its frame step or template encoder): the
+    kernel launches of each call, and its time on the host clock
+    (synchronised before and after). Returns the log of (ms, launches)."""
+    import torch
+    real, log = getattr(drv, attr), []
+
+    def watched(*args):
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args)
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - t0) * 1e3,
+                    {k: c.launches - before[k] for k, c in counters.items()}))
+        return out
+
+    setattr(drv, attr, watched)
+    return log
+
+
+def _per_call_check(label, log, expect):
+    """Every call of `log` made exactly the launches of `expect` (0 for the
+    kernels it does not name)."""
+    for i, (_, counts) in enumerate(log):
+        want = {k: expect.get(k, 0) for k in counts}
+        if counts != want:
+            raise AssertionError(f"{label} call {i}: launches {counts} != {want}")
+
+
+def _median_after_first(ms):
+    rest = sorted(ms[1:]) or [float("nan")]
+    return rest[len(rest) // 2], rest[0], rest[-1]
+
+
+def _box_masks(boxes_xyxy, H, W):
+    """(H, W) float masks, each a box filled."""
+    import numpy as np
+    out = []
+    for x0, y0, x1, y1 in boxes_xyxy:
+        m = np.zeros((H, W), np.float32)
+        m[int(y0):int(y1), int(x0):int(x1)] = 1
+        out.append(m)
+    return out
+
+
+def phase_sot_serving(cfg):
+    """The annotation-prompt family of `video_joint_r50` at full width
+    (random weights from seed 0, bf16, the 4-channel template R50 and the
+    P3-P6 fuser: a 256x256 crop makes a 1024-token prompt, 2048 with a
+    second template): `SOTDriver` over SOT_FRAMES frames at SOT_HW with
+    `online_update` every 2 frames; `VOSDriver` over SOT_FRAMES frames at
+    VIS_HW with 2 objects (the second from frame 2) and `inference_on_3f`;
+    `RVOSDriver` over SOT_FRAMES frames at VIS_HW with a 20-token expression
+    at `rvos_temporal_weight` 0, then 0.3; `run_refdavis_offline` with 2
+    objects x 2 expressions over 3 frames. The update, refresh and VOS
+    thresholds are set to 0 so that with random weights every branch runs
+    (the template re-encodings, the 3f refresh and the merge). Launches per
+    frame step asserted (SOT and VOS: MSDA 12, the reid head skipped; R-VOS
+    14; NMS 0; a template encode launches none), as paths "sot", "vos",
+    "rvos". Then MSDA against its plain version at every input these paths
+    gave it, and timed there. Returns ({path: launches}, MSDA records)."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from uninext_tpu_torch.engine.mot_inference import RVOSDriver
+    from uninext_tpu_torch.engine.rvos_offline import run_refdavis_offline
+    from uninext_tpu_torch.engine.sot_inference import SOTDriver, VOSDriver
+    from uninext_tpu_torch.models.detr import build_model
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cfg, sot=dataclasses.replace(
+        cfg.sot, online_update=True, update_interval=2, update_threshold=0.0,
+        inference_on_3f=True, inst_threshold_vos=0.0))
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, template=True).eval()
+    torch.cuda.synchronize()
+    n_tb = sum(p.numel() for n, p in model.named_parameters()
+               if n.startswith(("detr.detr.ref_backbone.", "detr.sot_fuser.",
+                                "detr.adjust_layer.")))
+    print(f"[sot] video_joint_r50 with the template branch: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters (template "
+          f"branch {n_tb / 1e6:.2f}M: 4-channel R50, fuser, adjust_layer), "
+          f"{cfg.compute_dtype} compute, random weights from seed 0, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    counters = _counters()
+    t = cfg.transformer
+    plain_step = {"ms_deform_attn_fwd": t.enc_layers + t.dec_layers}
+    reid_step = {"ms_deform_attn_fwd": t.enc_layers + t.dec_layers
+                 + cfg.n_layer_deformable_reid}
+    g = torch.Generator(device=dev).manual_seed(6)
+    launches, msda_rec = {}, {}
+
+    def run_path(label, fn):
+        calls, unrecord = _recording_msda()
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total_ms = (time.perf_counter() - t0) * 1e3
+        unrecord()
+        launches[label] = {k: c.launches for k, c in counters.items()}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out, calls, total_ms, peak
+
+    # SOT at bench.py:bench_sot's size, online update every 2 frames
+    H, W = SOT_HW
+    frames, pad = _moving_frames(g, SOT_FRAMES, H, W)
+    sizes = torch.tensor([[H, W]], device=dev)
+    drv = SOTDriver(model, cfg)
+    enc_log = _watch_calls(drv, "encode", counters)
+    step_log = _watch_calls(drv, "step", counters)
+    box0 = np.array([500.0, 300.0, 700.0, 460.0], np.float32)
+    (boxes, times), calls, total_ms, peak = run_path(
+        "sot", lambda: drv.run_video(frames, pad, sizes, box0))
+    _per_call_check("sot frame step", step_log, plain_step)
+    _per_call_check("sot template", enc_log, {})
+    if boxes.shape != (SOT_FRAMES, 4) or not np.isfinite(boxes).all():
+        raise AssertionError(f"sot: boxes {boxes.shape}, finite {np.isfinite(boxes).all()}")
+    if len(enc_log) != 1 + (SOT_FRAMES - 1) // 2:
+        raise AssertionError(f"sot: {len(enc_log)} template encodes, expected the first "
+                             f"and one every 2 frames")
+    med, lo, hi = _median_after_first([x * 1e3 for x in times[1:]])
+    print(f"[sot] {SOT_FRAMES} frames at {H}x{W}, prompt {2 * 1024} tokens (the first "
+          f"template and the latest): template encodes ms {[round(x, 1) for x, _ in enc_log]} "
+          f"(crop, 4-channel R50, fuser, adjust_layer); per-frame ms (frame step, box to the "
+          f"host, the re-encode on every 2nd frame) first {times[1] * 1e3:.1f}, then median "
+          f"{med:.1f} ({lo:.1f}-{hi:.1f}); frame steps alone ms "
+          f"{[round(x, 1) for x, _ in step_log]}; video {total_ms:.1f} ms; peak "
+          f"{peak:.2f} GiB; launches per frame step {plain_step}, per template encode none")
+    print(f"[sot] boxes (xyxy px) {np.round(boxes, 1).tolist()}")
+    msda_rec.update(_check_vis_mot_msda(calls, "sot"))
+    del frames, pad
+
+    # VOS: two objects, the second from frame 2, inference_on_3f
+    H, W = VIS_HW
+    frames, pad = _moving_frames(g, SOT_FRAMES, H, W)
+    sizes = torch.tensor([[H, W]], device=dev)
+    drv = VOSDriver(model, cfg)
+    enc_log = _watch_calls(drv, "encode", counters)
+    step_log = _watch_calls(drv, "step", counters)
+    obj_boxes = [(100.0, 80.0, 300.0, 260.0), (400.0, 200.0, 640.0, 420.0)]
+    m1, m2 = _box_masks(obj_boxes, H, W)
+    init = {1: {"frame": 0, "box_xyxy": np.array(obj_boxes[0]), "mask": m1},
+            2: {"frame": 2, "box_xyxy": np.array(obj_boxes[1]), "mask": m2}}
+    labels, calls, total_ms, peak = run_path(
+        "vos", lambda: drv.run_video(frames, pad, sizes, init))
+    _per_call_check("vos frame step", step_log, plain_step)
+    _per_call_check("vos template", enc_log, {})
+    if len(step_log) != 2 + 2 * (SOT_FRAMES - 2):
+        raise AssertionError(f"vos: {len(step_log)} frame steps")
+    if any(l.shape != (H, W) or not set(np.unique(l)) <= {0, 1, 2} for l in labels):
+        raise AssertionError("vos: label maps of another shape or with other ids")
+    print(f"[vos] {SOT_FRAMES} frames at {H}x{W}, objects 1 (frame 0) and 2 (frame 2), "
+          f"inference_on_3f (prompt 2 x 1024 tokens): {len(enc_log)} template encodes "
+          f"(2 first templates, the rest 3f refreshes), ms "
+          f"{[round(x, 1) for x, _ in enc_log]}; frame steps (one per object) ms "
+          f"{[round(x, 1) for x, _ in step_log]}; video {total_ms:.1f} ms with the "
+          f"upsample, merge and refreshes; peak {peak:.2f} GiB; pixels per label in the "
+          f"last frame {np.bincount(labels[-1].ravel(), minlength=3).tolist()}")
+    msda_rec.update(_check_vis_mot_msda(calls, "vos"))
+
+    # R-VOS: a 20-token expression, temporal weight 0 then 0.3; Ref-DAVIS offline
+    def rvos_paths():
+        out = {}
+        for w in (0.0, 0.3):
+            rcfg = dataclasses.replace(cfg, rvos_temporal_weight=w)
+            drv = RVOSDriver(model, rcfg)
+            step_log = _watch_calls(drv, "step", counters)
+            expr = torch.randint(0, 30000, (1, 20), device=dev, generator=g)
+            lang = drv.encode_prompt(expr, torch.ones_like(expr))
+            masks = drv.run_video(frames, pad, sizes, lang["hidden"], lang["masks"],
+                                  ori_size=MOT_ORI)
+            out[w] = (masks, step_log)
+        drv = RVOSDriver(model, dataclasses.replace(cfg, rvos_temporal_weight=0.3))
+        exprs = {}
+        for oid in (1, 2):
+            exprs[oid] = []
+            for _ in range(2):
+                expr = torch.randint(0, 30000, (1, 20), device=dev, generator=g)
+                lang = drv.encode_prompt(expr, torch.ones_like(expr))
+                exprs[oid].append((lang["hidden"], lang["masks"]))
+        step_log = _watch_calls(drv, "step", counters)
+        out["refdavis"] = (run_refdavis_offline(drv, frames[:3], pad, sizes, exprs, MOT_ORI),
+                           step_log)
+        return out
+
+    res, calls, total_ms, peak = run_path("rvos", rvos_paths)
+    for key, (out, step_log) in res.items():
+        _per_call_check(f"rvos {key} frame step", step_log, reid_step)
+        ms = [x for x, _ in step_log]
+        med, lo, hi = _median_after_first(ms)
+        if key == "refdavis":
+            if len(out) != 3 or any(l.shape != MOT_ORI for l in out):
+                raise AssertionError("refdavis: label maps of another shape")
+            print(f"[rvos] run_refdavis_offline, 2 objects x 2 expressions over 3 frames at "
+                  f"{H}x{W} to {MOT_ORI}: {len(step_log)} frame steps, median {med:.1f} ms; "
+                  f"pixels per label in frame 0 "
+                  f"{np.bincount(out[0].ravel(), minlength=3).tolist()}")
+        else:
+            if len(out) != SOT_FRAMES or any(m.shape != MOT_ORI for m in out):
+                raise AssertionError(f"rvos {key}: masks of another shape")
+            print(f"[rvos] RVOSDriver, rvos_temporal_weight {key}: {SOT_FRAMES} frames at "
+                  f"{H}x{W}, masks to {MOT_ORI}: frame steps ms first {ms[0]:.1f}, then "
+                  f"median {med:.1f} ({lo:.1f}-{hi:.1f}); mask pixels per frame "
+                  f"{[int(m.sum()) for m in out]}")
+    print(f"[rvos] all R-VOS paths {total_ms:.1f} ms; peak {peak:.2f} GiB; launches per "
+          f"frame step {reid_step} (the reid head's 2 of them)")
+    msda_rec.update(_check_vis_mot_msda(calls, "rvos"))
+    del model, frames, pad
+    torch.cuda.empty_cache()
+    return launches, msda_rec
+
+
+def phase_sot_training(cfg, n_steps: int):
+    """The SOT training step of `video_joint_r50` at full width
+    (`engine/train.py:train_step(task="sot")` on a pair batch at bs=2, key
+    and ref at IMAGE_HW with masks: the ref frame's template crop with its
+    gt mask as 4th channel through the 4-channel template R50, the fuser
+    and adjust_layer, then a grounding pass with DN queries on the key
+    frame, its losses scaled by `sot_loss_scale`), 1 warm-up and `n_steps`
+    timed steps. Launches per step asserted (MSDA: the key frame's encoder,
+    its recompute and the decoder; MSDA-bwd: the encoder and the decoder;
+    no reid head). A res3 convolution of the template backbone moves, its
+    stem and res2 stay bit-equal (with the whole frozen group); `sot_fuser`
+    and `adjust_layer` move; the frozen BERT gets no gradient and decays as
+    in phase 11. MSDA and MSDA-bwd against their plain versions at the
+    step's shapes. Returns (launches, MSDA checks)."""
+    import torch
+    from uninext_tpu_torch.engine.train import build_train_state, train_step
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    state = build_train_state(cfg, seed=0, template=True)
+    batch = _video_train_batch(cfg, dev)
+    params = dict(state.model.named_parameters())
+    frozen = {n: params[n].detach().clone() for n in state.optimizer.names["frozen"]}
+    tb = "detr.detr.ref_backbone.0.backbone."
+    template_frozen = [n for n in frozen if n.startswith(tb)]
+    if not any(n.startswith(tb + "stem.") for n in template_frozen) or not any(
+            n.startswith(tb + "res2.") for n in template_frozen):
+        raise AssertionError("the template R50's stem and res2 are not in the frozen group")
+    moving = [tb + "res3.0.conv2.weight", "detr.sot_fuser.refine.3.weight",
+              "detr.adjust_layer.weight"]
+    before_moving = {n: params[n].detach().clone() for n in moving}
+    bert = [n for n in params if n.startswith("text_encoder.")]
+    torch.cuda.synchronize()
+    print(f"[sot training] video_joint_r50 with the template branch, bs={TRAIN_BATCH} (key, "
+          f"ref) pairs at {IMAGE_HW[0]}x{IMAGE_HW[1]} with masks, the template from the first "
+          f"valid ref slot (crop {cfg.sot.template_size}, 4th channel its gt mask), "
+          f"sot_loss_scale {cfg.loss.sot_loss_scale}; {len(template_frozen)} template R50 "
+          f"parameters frozen; set up in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_step(state, batch, task="sot")
+    torch.cuda.synchronize()
+    print(f"[sot training] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    counters = _counters()
+    t = cfg.transformer
+    n_remat = t.enc_layers if cfg.remat_encoder else 0
+    expect = {**dict.fromkeys(counters, 0),
+              "ms_deform_attn_fwd": t.enc_layers + t.dec_layers + n_remat,
+              "ms_deform_attn_bwd": t.enc_layers + t.dec_layers}
+    calls, unrecord = _recording_msda()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    lr, wd = cfg.solver.lang_lr, cfg.solver.weight_decay
+    step_ms, metrics, per_step, decay_err = [], [], [], 0.0
+    for _ in range(n_steps):
+        before = {k: c.launches for k, c in counters.items()}
+        old = {n: params[n].detach().clone() for n in bert}
+        t0 = time.perf_counter()
+        m = train_step(state, batch, task="sot")
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: c.launches - before[k] for k, c in counters.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+        if any(params[n].grad is not None for n in bert):
+            raise AssertionError("sot training: the frozen BERT got a gradient")
+        factor = 1.0 - lr * state.optimizer.schedule(state.optimizer.count - 1) * wd
+        for n in bert:
+            want = old[n] * factor
+            err = ((params[n] - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+            decay_err = max(decay_err, err)
+            if not err <= 2.5e-7:
+                raise AssertionError(f"{n}: after the update {err:.3g} from its decay")
+    unrecord()
+    launches = {k: c.launches for k, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(metrics):
+        print(f"[sot training] step {i + 1}: total_loss {m['total_loss']:.6g}, grad norm "
+              f"before the clip {m['grad_norm']:.6g}, {step_ms[i]:.1f} ms; losses "
+              + json.dumps({k: round(v, 6) for k, v in m.items()
+                            if k not in ("total_loss", "grad_norm")}))
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad or "loss_reid" in m:
+            raise AssertionError(f"sot step {i + 1}: non-finite {bad} or a reid loss")
+    print(f"[sot training] step ms (host clock, synchronised): "
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"; peak device memory {peak:.2f} GiB (max_memory_allocated)")
+    print(f"[sot training] kernel launches per step: {per_step[0]}; expected {expect}")
+    for counts in per_step:
+        if counts != expect:
+            raise AssertionError(f"sot launches per step {counts} != {expect}")
+    still = [n for n in moving if torch.equal(params[n], before_moving[n])]
+    if still:
+        raise AssertionError(f"sot training: parameters that should move did not: {still}")
+    moved = [n for n, p in frozen.items() if not torch.equal(params[n], p)]
+    if moved:
+        raise AssertionError(f"sot training: frozen parameters moved: {moved[:5]}")
+    print(f"[sot training] moved: {moving}; the {len(frozen)} frozen parameters bit-equal "
+          f"({len(template_frozen)} of them the template R50's stem, res2 and FrozenBN "
+          f"statistics); frozen BERT: no gradient, each update = before x (1 - lr_lang x "
+          f"schedule x wd) within {decay_err:.3g} (relative; tolerance 2.5e-7)")
+    checks = _check_msda_calls(calls, label="sot training")
+    del state, batch, params, frozen
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
+def _kernel_a_at(g, label, B, h, w):
+    """Kernel A (bf16, tensor cores) against its plain version at (B, h, w)
+    with ViT-H's 16 heads of 80, timed beside its bound and SDPA with a
+    float bias mask: eagerly (CUDA events) and, since at these sizes the
+    host's launches take longer than the device's work, over CUDA graph
+    replays. Returns (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    sdpa_ms, graph_ms, sdpa_graph_ms)."""
+    import torch
+    import torch.nn.functional as F
+    from uninext_tpu_torch.models import vit
+    from uninext_tpu_torch.tools import event_ms
+    nh, hd, dt = 16, 80, torch.bfloat16
+    S = h * w
+    base, rh, rw = _attention_inputs(g.device, g, B, h, w, nh, hd)
+    q, k, v = base.to(dt).unbind(2)
+    q5 = q.reshape(B, h, w, nh, hd)
+    args = (q5, k, v, rh.to(dt), rw.to(dt), hd ** -0.5)
+    err = _check(f"kernel A at the {label} shape", vit.flash_rel_pos_attention(*args),
+                 vit.rel_pos_attention_plain(*args), 3.2e-2)
+    ms = _timed(lambda: vit.flash_rel_pos_attention(*args), 20)
+    pms = _timed(lambda: vit.rel_pos_attention_plain(*args), 3)
+    b_ms, b_by = _bound(2 * (4 * B * S * nh * hd + h * h * hd + w * w * hd),
+                        B * nh * (4 * S * S * hd + 2 * S * (h + w) * hd), "bf16")
+    sq, sk, sv, bias = _sdpa_args(q5, k, v, rh.to(dt), rw.to(dt))
+    sdpa = lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias)
+    lib = _timed(sdpa, 20)
+    gms = event_ms(lambda: vit.flash_rel_pos_attention(*args))
+    lib_g = event_ms(sdpa)
+    print(f"[kernel A] {label} B={B} {h}x{w} nh={nh} hd={hd} bf16: max_abs_err={err:.3g} "
+          f"(tol 3.2e-2), wrapper {ms:.4f} ms eagerly, {gms:.4f} ms over CUDA graph replays "
+          f"({100 * b_ms / gms:.1f}% of its bound {b_ms:.4f} ms, {b_by}), plain {pms:.3f} ms; "
+          f"SDPA with a float bias mask {lib:.4f} ms eagerly, {lib_g:.4f} ms over graph "
+          f"replays")
+    return err, ms, pms, b_ms, b_by, lib, gms, lib_g
+
+
+def phase_sot_vith():
+    """`video_joint_vit_huge()` at full width with the template branch (the
+    4-channel ViT-H template backbone; random weights from seed 0, bf16):
+    `VOSDriver` with one object over 4 frames at VIS_HW, then 4 frames at
+    IMAGE_HW, each video a template encode (a 256 crop: a 16x16 patch grid)
+    and a frame step with masks per frame. Kernel A asserted at 32 launches
+    per backbone pass (24 global, 8 windowed blocks), as path "sot_vith".
+    Then kernel A against its plain version, timed beside its bound and
+    SDPA, at the template's shapes (global 1x16x16, windows: the grid padded
+    to 28x28, 4 of 14x14) and the 480x736 frame's (global 1x30x46, windows:
+    42x56, 12 of 14x14). Returns (launches, kernel A records)."""
+    import numpy as np
+    import torch
+    from uninext_tpu_torch.config import video_joint_vit_huge
+    from uninext_tpu_torch.engine.sot_inference import VOSDriver
+    from uninext_tpu_torch.models.detr import build_model
+    dev = torch.device("cuda")
+    cfg = video_joint_vit_huge()
+    t0 = time.perf_counter()
+    model = build_model(cfg, seed=0, template=True).eval()
+    torch.cuda.synchronize()
+    print(f"[sot_vith] video_joint_vit_huge with the template branch: "
+          f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters (two ViT-H: "
+          f"3 and 4 input channels), built in {time.perf_counter() - t0:.1f} s")
+    counters = _counters()
+    t = cfg.transformer
+    blocks = cfg.backbone.vit_depth
+    step_expect = {"rel_pos_flash_attn": blocks, "ms_deform_attn_fwd": t.enc_layers + t.dec_layers}
+    g = torch.Generator(device=dev).manual_seed(8)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    for H, W in (VIS_HW, IMAGE_HW):
+        frames, pad = _moving_frames(g, 4, H, W)
+        sizes = torch.tensor([[H, W]], device=dev)
+        drv = VOSDriver(model, cfg)
+        enc_log = _watch_calls(drv, "encode", counters)
+        step_log = _watch_calls(drv, "step", counters)
+        box = np.array([W * 0.3, H * 0.3, W * 0.3 + 240, H * 0.3 + 200], np.float32)
+        init = {1: {"frame": 0, "box_xyxy": box, "mask": _box_masks([box], H, W)[0]}}
+        labels = drv.run_video(frames, pad, sizes, init)
+        _per_call_check("sot_vith frame step", step_log, step_expect)
+        _per_call_check("sot_vith template", enc_log, {"rel_pos_flash_attn": blocks})
+        if any(l.shape != (H, W) for l in labels):
+            raise AssertionError("sot_vith: label maps of another shape")
+        ms = [x for x, _ in step_log]
+        med, lo, hi = _median_after_first(ms)
+        print(f"[sot_vith] {H}x{W}: template encode (4-channel ViT-H on a 256 crop, fuser, "
+              f"adjust_layer) {enc_log[0][0]:.1f} ms; frame step with the mask ms first "
+              f"{ms[0]:.1f}, then median {med:.1f} ({lo:.1f}-{hi:.1f}); launches per frame "
+              f"step {step_expect}, per template encode {blocks} of kernel A")
+        del frames, pad
+    launches = {k: c.launches for k, c in counters.items()}
+    print(f"[sot_vith] peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          f"GiB; launches {launches}")
+    del model
+    torch.cuda.empty_cache()
+    rec = {}
+    gk = torch.Generator(device=dev).manual_seed(9)
+    vh, vw = VIS_HW[0] // 16, VIS_HW[1] // 16
+    for key, (B, h, w) in (("sot_vith_template", (1, 16, 16)),
+                           ("sot_vith_template_window", (4, 14, 14)),
+                           ("sot_vith_480", (1, vh, vw)),
+                           ("sot_vith_480_window", (12, 14, 14))):
+        err, ms, pms, b_ms, b_by, lib, gms, lib_g = _kernel_a_at(gk, key, B, h, w)
+        rec.update({f"{key}_max_abs_err": err, f"{key}_ms": ms, f"{key}_plain_ms": pms,
+                    f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                    f"{key}_library_ms": lib, f"{key}_graph_ms": gms,
+                    f"{key}_library_graph_ms": lib_g, f"{key}_shape": f"B={B} {h}x{w} bf16"})
+        torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_sot_loop():
+    """`video_joint_r50` with the template branch through the port's SOT
+    loop on a single-object mini-YTVIS of SOT_LOOP_VIDEOS train and val
+    videos (8 frames of 192x256) in a temporary directory, at
+    `tools/sot_check.py --flagship`'s settings: `VideoPairMapper` ->
+    `MultiDatasetLoader` (bs=2, batches routed to "sot") ->
+    `Trainer(video=True, task="sot")` for SOT_LOOP_STEPS updates ->
+    `SOTDriver` + `evaluate_sot` and `VOSDriver` + `evaluate_davis` on the
+    val videos (AUC and J&F finite); then one referring val video
+    (`make_mini_ytvis(referring=True)`) through `RVOSDriver` to a J&F.
+    Launches counted as path "sot_loop"; after they are read, MSDA and
+    MSDA-bwd against their plain versions at every shape the loop gave them.
+    Returns the launches and those checks."""
+    import tempfile
+    import numpy as np
+    import torch
+    from uninext_tpu_torch.data.loader import MultiDatasetLoader
+    from uninext_tpu_torch.data.mini_coco import make_mini_ytvis
+    from uninext_tpu_torch.data.tokenizer import BertTokenizer
+    from uninext_tpu_torch.data.video import VideoPairMapper, load_ytvis_json
+    from uninext_tpu_torch.engine.mot_inference import RVOSDriver
+    from uninext_tpu_torch.engine.trainer import Trainer
+    from uninext_tpu_torch.evaluation.davis_eval import evaluate_davis
+    from uninext_tpu_torch.tools import ap_check, sot_check, vis_check
+    counters = _counters()
+    cfg = sot_check.build_cfg(SOT_LOOP_STEPS, flagship=True)
+    calls, unrecord = _recording_msda()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    n_train, n_val = SOT_LOOP_VIDEOS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sot_") as root:
+        t0 = time.perf_counter()
+        paths = make_mini_ytvis(os.path.join(root, "data"), n_train=n_train, n_val=n_val,
+                                length=8, max_objects=1)
+        train_recs, cats = load_ytvis_json(paths["train_json"], paths["train_root"])
+        val_recs, _ = load_ytvis_json(paths["val_json"], paths["val_root"])
+        mapper = VideoPairMapper(cfg.data, cats, is_train=True, with_masks=True,
+                                 sampling_frame_range=sot_check.FRAME_RANGE)
+        batches = iter(MultiDatasetLoader([(train_recs, mapper, 2, "sot")], [1.0], seed=0,
+                                          num_workers=2))
+        log = ap_check.StepLog()
+        trainer = Trainer(cfg, batches, output_dir=os.path.join(root, "run"), seed=0,
+                          task="sot", video=True, extra_hooks=[log])
+        print(f"[sot loop] single-object mini-YTVIS of {n_train} + {n_val} videos written "
+              f"and the trainer built in {time.perf_counter() - t0:.1f} s")
+        trainer.train()
+        batches.close()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        model = trainer.model.eval()
+        t0 = time.perf_counter()
+        agg, jf, per_video = sot_check.eval_sot_vos(model, cfg, val_recs, "cuda")
+        eval_s = time.perf_counter() - t0
+        ref = make_mini_ytvis(os.path.join(root, "ref"), n_train=1, n_val=1, length=8,
+                              max_objects=2, referring=True)
+        ref_recs, _ = load_ytvis_json(ref["val_json"], ref["val_root"], has_expression=True)
+        rec = ref_recs[0]
+        tok = BertTokenizer()(rec["expressions"][0], max_length=cfg.data.max_text_len)
+        drv = RVOSDriver(model, cfg)
+        lang = drv.encode_prompt(tok["input_ids"][None], tok["attention_mask"][None])
+        Hh, Ww = vis_check.H, vis_check.W
+        masks = drv.run_video(vis_check.frames_of(rec), np.zeros((1, Hh, Ww), bool),
+                              np.array([[Hh, Ww]]), lang["hidden"], lang["masks"],
+                              ori_size=(rec["height"], rec["width"]))
+        _, _, gt = sot_check.scaled_track_gt(rec, rec["height"], rec["width"])
+        rvos_jf = evaluate_davis({1: masks}, {1: gt})["J&F"]
+        n_frames = sum(r["length"] for r in val_recs)
+        n_ref_frames = rec["length"]
+    unrecord()
+    step_ms = [x * 1e3 for x in log.seconds]
+    if not all(map(math.isfinite, log.total_loss)):
+        raise AssertionError(f"sot loop: non-finite total loss {log.total_loss}")
+    print("[sot loop] total loss per step: " + ", ".join(f"{x:.4g}" for x in log.total_loss))
+    print(f"[sot loop] step ms (host clock to the end of each step's device work): "
+          + ", ".join(f"{x:.1f}" for x in step_ms) + f"; peak device memory {peak:.2f} GiB")
+    print(f"[sot loop] SOTDriver and VOSDriver on {n_val} val videos ({n_frames} frames): "
+          f"{eval_s:.1f} s; after {SOT_LOOP_STEPS} steps AUC {agg['AUC']:.4f}, P "
+          f"{agg['P']:.4f}, J&F {jf:.4f}; per video "
+          + json.dumps([{k: (round(v, 4) if isinstance(v, float) else v) for k, v in x.items()}
+                        for x in per_video])
+          + f"; R-VOS on a referring val video ({rec['expressions'][0]!r}): J&F {rvos_jf:.4f}")
+    if not (math.isfinite(agg["AUC"]) and math.isfinite(jf) and math.isfinite(rvos_jf)):
+        raise AssertionError(f"sot loop: AUC {agg['AUC']}, J&F {jf}, R-VOS J&F {rvos_jf}")
+    launches = {k: c.launches for k, c in counters.items()}
+    t = cfg.transformer
+    n_remat = t.enc_layers if cfg.remat_encoder else 0
+    per_frame = t.enc_layers + t.dec_layers
+    expect = {**dict.fromkeys(counters, 0),
+              "ms_deform_attn_fwd": SOT_LOOP_STEPS * (per_frame + n_remat)
+              + per_frame * (2 * n_frames - n_val)
+              + n_ref_frames * (per_frame + cfg.n_layer_deformable_reid),
+              "ms_deform_attn_bwd": SOT_LOOP_STEPS * per_frame}
+    print(f"[sot loop] kernel launches: {launches}; expected {expect}")
+    if launches != expect:
+        raise AssertionError(f"sot loop launches {launches} != {expect}")
+    checks = _check_msda_calls(calls, label="sot loop")
+    torch.cuda.empty_cache()
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -2189,6 +2763,18 @@ def main():
     rec["nms"].update(video_rec["nms"])
     for name, r in video_checks.items():
         rec[name].update({f"video_{k}": v for k, v in r.items()})
+    sot_serving, sot_rec = phase_sot_serving(video)
+    sot_training, sot_train_checks = phase_sot_training(video, SOT_TRAIN_STEPS)
+    sot_vith, vith_rec = phase_sot_vith()
+    sot_loop, sot_loop_checks = phase_sot_loop()
+    rec["ms_deform_attn_fwd"].update(sot_rec)
+    a = rec["rel_pos_flash_attn"]
+    a.update(vith_rec)
+    a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in vith_rec.items()
+                                                  if k.endswith("max_abs_err")])
+    for prefix, checks in (("sot_training", sot_train_checks), ("sot_loop", sot_loop_checks)):
+        for name, r in checks.items():
+            rec[name].update({f"{prefix}_{k}": v for k, v in r.items()})
     for r in (rec["ms_deform_attn_fwd"], rec["ms_deform_attn_bwd"]):
         r["max_abs_err"] = max([r["max_abs_err"]] + [
             v for k, v in r.items() if k.endswith("max_abs_err") and k != "max_abs_err"])
@@ -2200,6 +2786,9 @@ def main():
                    "r50_training": r50_training[name], "r50_train_loop": r50_loop[name],
                    "vis": video_serving["vis"][name], "mot": video_serving["mot"][name],
                    "video_training": video_training[name], "video_loop": video_loop[name],
+                   **{path: n[name] for path, n in sot_serving.items()},
+                   "sot_training": sot_training[name], "sot_vith": sot_vith[name],
+                   "sot_loop": sot_loop[name],
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -2220,7 +2809,8 @@ def main():
                                              "loop_max_rel_err", "loop_shapes")
                            if k in r},
                         **{k: v for k, v in r.items()
-                           if k.startswith(("vis_", "mot_", "video_"))}})
+                           if k.startswith(("vis_", "mot_", "video_", "sot_", "vos_",
+                                            "rvos_"))}})
         k = kernels[-1]
         if "kernel_ms" in k:
             k["kernel_bound_share"] = k["bound_ms"] / k["kernel_ms"]

@@ -11,7 +11,8 @@ import uninext_tpu_torch.config as tcfg
 
 
 @pytest.mark.parametrize("preset", ["image_joint_r50", "image_joint_vit_huge",
-                                    "video_joint_r50", "tiny_test_config",
+                                    "video_joint_r50", "video_joint_vit_huge",
+                                    "tiny_test_config",
                                     "tiny_video_test_config", "UninextConfig"])
 def test_preset_matches_jax_field_by_field(preset):
     got = dataclasses.asdict(getattr(tcfg, preset)())
@@ -62,3 +63,33 @@ def test_vis_fixture_config_matches_the_jax_tool(flagship):
     finally:
         sys.path.remove(tools)
     assert dataclasses.asdict(vis_check.build_cfg(1000, flagship)) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("flagship", [False, True])
+def test_sot_fixture_config_matches_the_jax_tool(flagship):
+    """`tools/sot_check.py:build_cfg` is `tools/_evidence_common.py:
+    build_tiny_cfg(steps, frame_range=7)` (`tools/real_sot_check.py`'s);
+    with `flagship`, `video_joint_r50` with the template branch and the
+    settings of `tools/vis_check.py --flagship` at frame range 7."""
+    import os
+    import sys
+    from uninext_tpu_torch.tools import sot_check, vis_check
+    if flagship:
+        got = sot_check.build_cfg(800, True)
+        want = vis_check.build_cfg(800, True)
+        assert got.sot.extra_backbone_for_template and got.sot.feature_fusion
+        assert got.data.sampling_frame_range == 7
+        assert dataclasses.asdict(dataclasses.replace(
+            got, data=dataclasses.replace(got.data, sampling_frame_range=5))) == \
+            dataclasses.asdict(dataclasses.replace(
+                want, data=dataclasses.replace(want.data, sampling_frame_range=5)))
+        return
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "tools")
+    sys.path.insert(0, tools)
+    try:
+        from _evidence_common import build_tiny_cfg
+        want = build_tiny_cfg(800, frame_range=7)
+    finally:
+        sys.path.remove(tools)
+    assert dataclasses.asdict(sot_check.build_cfg(800)) == dataclasses.asdict(want)

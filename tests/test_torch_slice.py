@@ -100,7 +100,8 @@ def test_port_runs_without_jax():
     REC/RES), running the three labs (`tools/`), the training loop with
     its data pipeline, checkpoints and COCO evaluation, and the video
     family (`VISDriver` over 2 frames, a two-frame train step, the VIS
-    fixture tool's loop), at a tiny size,
+    fixture tool's loop) and SOT (a template encode and a SOT frame through
+    `SOTDriver`, a SOT train step), at a tiny size,
     leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
     without them."""
@@ -225,6 +226,21 @@ def test_port_runs_without_jax():
             res = vis_check.main(["--steps", "2", "--n-train", "2", "--n-val", "1",
                                   "--device", "cpu", "--out", root + "/vis.json"])
         assert res["per_seed"][0]["vis_map"] is not None
+        # SOT: a template encode (the 4-channel template R50 and the fuser)
+        # and a SOT frame through SOTDriver, and a SOT train step
+        from uninext_tpu_torch.engine.sot_inference import SOTDriver
+        scfg = dataclasses.replace(vcfg, sot=dataclasses.replace(vcfg.sot, template_size=64))
+        model = build_model(scfg, "cpu", seed=6, template=True)
+        track, _ = SOTDriver(model, scfg, device="cpu").run_video(
+            frames, torch.zeros(1, 64, 96, dtype=torch.bool), torch.tensor([[64, 96]]),
+            np.array([20.0, 10.0, 60.0, 50.0], np.float32))
+        assert track.shape == (2, 4) and np.isfinite(track).all()
+        state = build_train_state(scfg, "cpu", seed=6, template=True)
+        metrics = train_step(state, {
+            "images_key": images, "images_ref": images.roll(4, dims=2),
+            "img_mask": img_mask, "image_sizes": sizes, "targets_key": tk,
+            "targets_ref": tk}, task="sot")
+        assert torch.isfinite(metrics["total_loss"]) and "loss_reid" not in metrics
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"))
         print("JAX_MODULES", bad)

@@ -398,9 +398,15 @@ def test_trainer_video_checkpoint_and_resume(ytvis, tmp_path):
 
 
 def test_video_train_step_refuses_sot():
+    """The SOT step takes only (key, ref) pair batches, and only a model
+    built with the template branch encodes a template."""
     from uninext_tpu_torch.engine.train import loss_and_grads
-    with pytest.raises(NotImplementedError, match="SOT"):
-        loss_and_grads(None, {"images_key": None}, {}, task="sot")
+    from uninext_tpu_torch.models.detr import build_model
+    with pytest.raises(ValueError, match="pair batch"):
+        loss_and_grads(None, {"images": None}, {}, task="sot")
+    model = build_model(tiny_test_config(), "cpu", seed=0)
+    with pytest.raises(ValueError, match="template branch"):
+        model.encode_template(torch.zeros(1, 64, 64, 3))
 
 
 def test_trainer_refuses_a_pair_batch_without_video(ytvis, tmp_path):

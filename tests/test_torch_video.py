@@ -4,8 +4,8 @@ reid head), the VIS frame step's valid slots, the two-frame training
 losses and every gradient (`forward_video_train` against
 `jax.value_and_grad`; the grounding task's losses), AdamW's step on the
 frozen BERT, `loss_reid_static`
-on each kind of row, the weight bridge of the reid leaves and its refusal
-of the template branch, and the optimizer groups.
+on each kind of row, the weight bridge of the reid leaves and of a tree
+with the template branch, and the optimizer groups.
 
 Config: `tiny_video_test_config()` (R50 at full width, 2 + 2 transformer
 layers of width 64, 60 queries, the reid head) with what `video_joint_r50`
@@ -149,17 +149,20 @@ def test_reid_tree_fills_the_port_and_round_trips(pair):
 
 def test_bridge_refuses_the_template_branch(pair):
     """A tree of `init_all_paths` (every branch, the SOT/VOS template
-    branch included; its shapes, by `jax.eval_shape`) is refused with an
-    error that names the three subtrees the port does not build yet."""
+    branch included; its shapes, by `jax.eval_shape`) is refused by a model
+    built without the template branch, with an error that names the
+    template parameters it does not have, and loads whole into one built
+    with it (`build_model(..., template=True)`)."""
     cfg, *_, jm, _, model = pair
     shapes = jax.eval_shape(lambda r: init_all_paths(jm, r, H=64, W=96),
                             jax.random.PRNGKey(0))
     tree = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
     assert {"template_backbone", "sot_fuser", "adjust_layer"} <= set(tree["params"])
-    with pytest.raises(ValueError) as err:
+    with pytest.raises(RuntimeError) as err:
         convert.load_jax_params(build_model(cfg, "cpu", seed=1), tree)
-    for name in ("template_backbone", "sot_fuser", "adjust_layer", "SOT/VOS"):
+    for name in ("detr.detr.ref_backbone.", "detr.sot_fuser.", "detr.adjust_layer."):
         assert name in str(err.value)
+    convert.load_jax_params(build_model(cfg, "cpu", seed=1, template=True), tree)
 
 
 def test_reid_embeds_match_jax(pair):

@@ -335,6 +335,14 @@ def image_joint_vit_huge() -> UninextConfig:
                                 out_channels=(640, 1280, 1280)))
 
 
+def video_joint_vit_huge() -> UninextConfig:
+    """ViT-Huge stage-3 variant (reference configs/video_joint_vit_huge)."""
+    return dataclasses.replace(
+        video_joint_r50(),
+        backbone=BackboneConfig(name="vit_huge",
+                                out_channels=(640, 1280, 1280)))
+
+
 def tiny_test_config() -> UninextConfig:
     """Small config for unit tests: 2 layers, 60 queries, small dims."""
     return UninextConfig(

@@ -116,19 +116,25 @@ def make_mini_coco(root: str, n_train: int = 32, n_val: int = 12,
 
 def make_mini_ytvis(root: str, n_train: int = 8, n_val: int = 4,
                     seed: int = 0, size: Tuple[int, int] = (192, 256),
-                    length: int = 6, max_objects: int = 2) -> Dict[str, str]:
+                    length: int = 6, max_objects: int = 2,
+                    referring: bool = False) -> Dict[str, str]:
     """YTVIS-schema mini dataset: real JPEG frame dirs + {split}.json with
     per-frame bboxes/polygon segmentations and track identity — objects move
     linearly across frames so VIS association is actually exercised.
     Layout: root/{split}/JPEGImages/<vid>/%05d.jpg + root/{split}.json.
-    (The referring R-VOS variant of the JAX package's fixture comes with the
-    R-VOS slice.)"""
+
+    referring=True: a Ref-Youtube-VOS-style R-VOS fixture: each video draws
+    2+ objects of distinct categories but annotates only the first (the
+    referred target; the others stay in the pixels as distractors), and the
+    json gains an ``expressions`` table {video_id: [expr]} in the schema
+    `load_ytvis_json(has_expression=True)` reads."""
     rng = np.random.RandomState(seed)
     out = {}
     vid_id = 0
     for split, n in (("train", n_train), ("val", n_val)):
         img_root = os.path.join(root, split, "JPEGImages")
         videos, annotations = [], []
+        expressions: Dict[str, List[str]] = {}
         aid = 1
         for _ in range(n):
             vid_id += 1
@@ -136,11 +142,19 @@ def make_mini_ytvis(root: str, n_train: int = 8, n_val: int = 4,
             vname = f"vid{vid_id:03d}"
             os.makedirs(os.path.join(img_root, vname), exist_ok=True)
             objs = []
-            # this rng call order keeps seeded fixtures byte-identical to
-            # the JAX package's
-            n_obj = int(rng.randint(1, max_objects + 1))
+            if referring:
+                n_obj = min(int(rng.randint(2, max(max_objects, 2) + 1)),
+                            len(CATEGORIES))   # distinct categories only
+                cat_pick = list(rng.choice(len(CATEGORIES), size=n_obj,
+                                           replace=False))
+            else:
+                # this rng call order keeps seeded fixtures byte-identical
+                # to the JAX package's
+                n_obj = int(rng.randint(1, max_objects + 1))
+                cat_pick = None
             for _o in range(n_obj):
-                cat = CATEGORIES[rng.randint(len(CATEGORIES))]
+                cat = (CATEGORIES[int(cat_pick[_o])] if referring
+                       else CATEGORIES[rng.randint(len(CATEGORIES))])
                 r = float(rng.uniform(18, 34))
                 objs.append({
                     "cat": cat, "r": r,
@@ -181,15 +195,19 @@ def make_mini_ytvis(root: str, n_train: int = 8, n_val: int = 4,
                 fns.append(fn)
             videos.append({"id": vid_id, "height": h, "width": w,
                            "length": length, "file_names": fns})
-            for o in objs:
+            for o in (objs[:1] if referring else objs):
                 annotations.append({
                     "id": aid, "video_id": vid_id,
                     "category_id": o["cat"]["id"],
                     "bboxes": o["bboxes"], "segmentations": o["segs"],
                     "areas": o["areas"], "iscrowd": 0})
                 aid += 1
+            if referring:
+                expressions[str(vid_id)] = [f"the {objs[0]['cat']['name']}"]
         js = {"videos": videos, "annotations": annotations,
               "categories": CATEGORIES}
+        if referring:
+            js["expressions"] = expressions
         jpath = os.path.join(root, f"{split}.json")
         with open(jpath, "w") as f:
             json.dump(js, f)

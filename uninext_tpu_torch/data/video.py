@@ -29,9 +29,11 @@ from ..config import DataConfig
 from .coco import UniDatasetMapper, MappedSample
 
 
-def load_ytvis_json(json_file: str, image_root: str) -> Tuple[List[Dict], List[str]]:
-    """YTVIS-format json -> video dataset dicts + category names. (The
-    expressions of an R-VOS json come with the R-VOS slice.)"""
+def load_ytvis_json(json_file: str, image_root: str,
+                    has_expression: bool = False) -> Tuple[List[Dict], List[str]]:
+    """YTVIS-format json -> video dataset dicts + category names; with
+    `has_expression` (an R-VOS json) each video's referring expressions
+    from the json's `expressions` table and the task "grounding"."""
     with open(json_file) as f:
         data = json.load(f)
     cats = sorted(data.get("categories", []), key=lambda c: c["id"])
@@ -55,8 +57,9 @@ def load_ytvis_json(json_file: str, image_root: str) -> Tuple[List[Dict], List[s
                 "bboxes": a.get("bboxes", []),
                 "segmentations": a.get("segmentations", []),
             } for a in annos],
-            "expressions": None,
-            "task": "detection",
+            "expressions": data.get("expressions", {}).get(str(vid["id"]))
+            if has_expression else None,
+            "task": "grounding" if has_expression else "detection",
         })
     return out, cat_names
 

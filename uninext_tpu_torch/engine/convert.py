@@ -27,11 +27,15 @@ as in the reference checkpoint. The reid head of the video configs becomes
 `detr.reid_embed_head.*`: `reid_dec_{i}` (decoder layers) and
 `reid_ref_point_head` under `.0`, `reid_embed` (the MLP) under `.1`, or
 the MLP alone without the deformable head. The SOT/VOS template branch
-(`template_backbone`, `sot_fuser`, `adjust_layer`) is not ported: a tree
-that holds it is refused with an error that names it. Every JAX leaf must
-be consumed and every port parameter filled (but `load_jax_params`'s one
-exception, for a video tree's DN label encoder); anything else raises. The input is a tree of numpy arrays (or
-anything `np.asarray` takes), so this module needs no JAX.
+of a tree that holds it (`init_all_paths`, the SOT training path) goes to
+a model built with `template=True`: `template_backbone` (the backbone's
+family with 4 input channels) becomes `detr.detr.ref_backbone.0.backbone.*`,
+`sot_fuser/refine_{i}` `detr.sot_fuser.refine.{i}.*` and `adjust_layer`
+`detr.adjust_layer.*`, the reference checkpoint's keys. Every JAX leaf
+must be consumed and every port parameter filled (but `load_jax_params`'s
+one exception, for a video tree's DN label encoder); anything else raises,
+a template leaf the tree lacks by its name. The input is a tree of numpy
+arrays (or anything `np.asarray` takes), so this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -125,7 +129,7 @@ def fill_resnet(sd, key, lv, path):
         while lv.has(_j(path, f"res{s}_block{b}")):
             bp, bk = _j(path, f"res{s}_block{b}"), f"{key}res{s}.{b}."
             for conv, bn in _RESNET_BN.items():
-                if lv.has(_j(bp, conv)):
+                if lv.has(_j(bp, conv)) or lv.has(_j(bp, bn)):
                     _conv(sd, f"{bk}{conv}.", lv, _j(bp, conv))
                     _frozen_bn(sd, f"{bk}{conv}.norm.", lv, _j(bp, bn))
             b += 1
@@ -291,23 +295,31 @@ def fill_reid(sd, key, lv, path):
         _mlp(sd, key + "reid_embed_head.", lv, _j(path, "reid_embed"))
 
 
-# the template branch of the video configs, which the SOT/VOS slice brings
+# the SOT/VOS template branch (`uninext_tpu/models/detr.py:294-307`)
 TEMPLATE_BRANCH = ("template_backbone", "sot_fuser", "adjust_layer")
+
+
+def fill_template(sd, key, lv, path, fill_backbone=fill_resnet):
+    """The template branch as the tree holds it: `template_backbone` (filled
+    by `fill_backbone`, the main backbone's family), the fuser's
+    `sot_fuser/refine_{i}`, and `adjust_layer`."""
+    tb = _j(path, "template_backbone")
+    if lv.has(tb):
+        fill_backbone(sd, key + ROOT + "ref_backbone.0.backbone.", lv, tb)
+    i = 0
+    while lv.has(_j(path, f"sot_fuser/refine_{i}")):
+        _conv(sd, f"{key}detr.sot_fuser.refine.{i}.", lv, _j(path, f"sot_fuser/refine_{i}"))
+        i += 1
+    _dense(sd, key + "detr.adjust_layer.", lv, _j(path, "adjust_layer"))
 
 
 def fill_model(sd, key, lv, path):
     """The whole detection model (`UninextDETR` of the JAX package), with
-    the backbone the tree holds and, if it has them, the mask head and the
-    reid head. A tree with the SOT/VOS template branch is refused."""
-    held = [n for n in TEMPLATE_BRANCH if lv.has(_j(path, n))]
-    if held:
-        raise ValueError(
-            f"the JAX tree holds the SOT/VOS template branch ({', '.join(held)} of "
-            f"{', '.join(TEMPLATE_BRANCH)}), which the port does not build yet: the "
-            "SOT/VOS slice brings template_backbone, sot_fuser and adjust_layer. "
-            "Load a tree initialised through the video detection path "
-            "(forward_video_train), which has none of them.")
+    the backbone the tree holds and, if it has them, the mask head, the
+    reid head and the SOT/VOS template branch."""
     fill_backbone = fill_resnet if lv.has(_j(path, "backbone/stem_conv")) else fill_vit
+    if any(lv.has(_j(path, n)) for n in TEMPLATE_BRANCH):
+        fill_template(sd, key, lv, path, fill_backbone)
     fill_backbone(sd, key + ROOT + "backbone.0.backbone.", lv, _j(path, "backbone"))
     i = 0
     while lv.has(_j(path, f"input_proj_{i}")):
@@ -329,24 +341,25 @@ def fill_model(sd, key, lv, path):
         fill_reid(sd, key + "detr.", lv, path)
 
 
-_RESNET_KEY = re.compile(r"detr\.detr\.backbone\.0\.backbone\.(?:stem\.conv1|"
+_RESNET_KEY = re.compile(r"detr\.detr\.(backbone|ref_backbone)\.0\.backbone\.(?:stem\.conv1|"
                          r"(res\d)\.(\d+)\.(conv\d|shortcut))(\.norm)?\.(\w+)")
 
 
 def _resnet_leaf(port_key: str):
     """The JAX leaf of a ResNet parameter, e.g. `backbone/res2_block0/bn1/mean`
-    for `detr.detr.backbone.0.backbone.res2.0.conv1.norm.running_mean`;
-    None for any other key."""
+    for `detr.detr.backbone.0.backbone.res2.0.conv1.norm.running_mean`, or
+    under `template_backbone/` for the template backbone's
+    (`detr.detr.ref_backbone.0.backbone.*`); None for any other key."""
     m = _RESNET_KEY.fullmatch(port_key)
     if m is None:
         return None
-    stage, block, conv, norm, leaf = m.groups()
+    root, stage, block, conv, norm, leaf = m.groups()
     if stage is None:
         module = "stem_bn" if norm else "stem_conv"
     else:
         module = f"{stage}_block{block}/{_RESNET_BN[conv] if norm else conv}"
     leaf = {d: s for s, d in _FROZEN_BN}[leaf] if norm else "kernel"
-    return f"backbone/{module}/{leaf}"
+    return f"{'template_' if root == 'ref_backbone' else ''}backbone/{module}/{leaf}"
 
 
 # port-key patterns -> the JAX module each is filled from (by `fill_model`
@@ -354,6 +367,9 @@ def _resnet_leaf(port_key: str):
 # names. First match wins.
 _MODULE_PATHS = tuple((re.compile(p), r) for p, r in (
     (r"detr\.detr\.backbone\.0\.backbone\.(.*)", r"backbone/\1"),
+    (r"detr\.detr\.ref_backbone\.0\.backbone\.(.*)", r"template_backbone/\1"),
+    (r"detr\.sot_fuser\.refine\.(\d+)\.(.*)", r"sot_fuser/refine_\1/\2"),
+    (r"detr\.adjust_layer\.(.*)", r"adjust_layer/\1"),
     (r"detr\.controller\.layers\.(\d+)\.(.*)", r"controller/layer_\1/\2"),
     (r"detr\.mask_head\.(.*)", r"mask_head/\1"),
     (r"detr\.reid_embed_head\.0\.layers\.(\d+)\.(.*)", r"reid_dec_\1/\2"),
@@ -380,8 +396,10 @@ def jax_module_path(port_key: str) -> str:
     e.g. `transformer/vl_layer_0/attn/v_proj/weight` for
     `detr.detr.transformer.encoder.vl_layers.0.b_attn.attn.v_proj.weight`
     (module names as the JAX tree's, the leaf as the port's), and the JAX
-    leaf itself for the ResNet's (`_resnet_leaf`): the optimizer's
-    `classify_param` keys on `/mean`, `/var`, `/stem` and `res2_block`."""
+    leaf itself for the ResNets' (`_resnet_leaf`): the optimizer's
+    `classify_param` keys on `/mean`, `/var`, `/stem` and `res2_block`, and
+    puts `template_backbone/*` in its backbone and frozen groups as the
+    main backbone's, `sot_fuser` and `adjust_layer` in "base"."""
     leaf = _resnet_leaf(port_key)
     if leaf is not None:
         return leaf

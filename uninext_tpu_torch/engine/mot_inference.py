@@ -3,17 +3,22 @@
 class-aware NMS at 0.7 and a selection floor of min(inference_select_thr,
 obj_score_thr), then QDTrack association on the host (`associate`); MOTS
 adds the masks of the tracked boxes. Without masks the frame step skips
-the mask head. The R-VOS driver comes with the SOT/VOS slice.
+the mask head. `RVOSDriver` (inference_rvos, :1293-1358): an expression's
+prompt, the top-1 query's mask per frame (`engine/sot_inference.py:
+make_rvos_frame_step`).
 """
 from __future__ import annotations
 
 from typing import Dict, List
 
+import numpy as np
+import torch
 
 from ..config import UninextConfig
 from ..models.detr import UninextDETR
 from ..models.trackers import QuasiDenseTracker
-from .video_inference import _FrameDriver, _mask_to_original, image_size
+from .sot_inference import _TemplateDriver, make_rvos_frame_step
+from .video_inference import _FrameDriver, _mask_to_original, image_size, to_host
 
 
 class MOTDriver(_FrameDriver):
@@ -85,3 +90,44 @@ def associate(raw_frames: List[Dict], image_size, ori_size,
             dets.append(rec)
         per_frame.append(dets)
     return per_frame
+
+
+class RVOSDriver(_TemplateDriver):
+    """Referring VOS, online: the expression's prompt, the top-1 mask per
+    frame, on `device` (the card unless the caller asks for another). With
+    `rvos_temporal_weight` > 0 the choice carries the previous frame's
+    reid embedding as a prior (`make_rvos_frame_step`); at 0 it is the
+    reference's frame-independent inference_rvos."""
+
+    def __init__(self, model: UninextDETR, cfg: UninextConfig, device="cuda"):
+        super().__init__(model, cfg, device)
+        self.step = make_rvos_frame_step(model, cfg)
+
+    def encode_prompt(self, text_ids, text_mask) -> Dict[str, torch.Tensor]:
+        """The expression's BERT features (`encode_text`), (1, T) ids and mask."""
+        with torch.inference_mode():
+            return self.model.encode_text(self._tensor(text_ids).long(),
+                                          self._tensor(text_mask))
+
+    def run_expression(self, frames, img_masks, sizes, lang_hidden, lang_mask):
+        """The frame step over the video with one expression, the chosen
+        embedding carried from frame to frame. Yields each frame's outputs
+        on the host."""
+        img_masks, sizes = self._tensor(img_masks), self._tensor(sizes)
+        prev_embed = torch.zeros((1, self.cfg.transformer.d_model), device=self.device)
+        has_prev = False
+        for frame in frames:
+            r = self.step(self._tensor(frame), img_masks, sizes, lang_hidden, lang_mask,
+                          prev_embed, has_prev)
+            prev_embed, has_prev = r["embed"], True
+            yield to_host(r)
+
+    def run_video(self, frames, img_masks, sizes, lang_hidden, lang_mask,
+                  ori_size) -> List[np.ndarray]:
+        """lang_hidden, lang_mask: the expression's features (`encode_prompt`,
+        the grounding path pools them). Returns per-frame boolean masks at
+        `ori_size`."""
+        size = image_size(sizes)
+        return [_mask_to_original(o["mask_logits"][0], size, ori_size)
+                for o in self.run_expression(frames, img_masks, sizes, lang_hidden,
+                                             lang_mask)]

@@ -3,7 +3,9 @@ dict (detection or grounding, with the mask losses when the targets carry
 masks) -> weighted sum -> backward -> global-norm clip -> per-group AdamW,
 once every `grad_accum_steps` micro-steps. A (key, ref) pair batch of the
 video configs (`images_key` in place of `images`) takes the same step
-through `UninextDETR.forward_video_train`. Compute runs in the config's
+through `UninextDETR.forward_video_train`, or with `task="sot"` through
+`UninextDETR.forward_sot_train` (the ref frame's template as the prompt,
+the total scaled by `loss.sot_loss_scale`). Compute runs in the config's
 dtype (bf16) with fp32 parameters and optimizer state, as in the JAX
 package; no loss scaling. The loop around it is `engine/trainer.py`.
 """
@@ -28,18 +30,18 @@ def loss_weights(cfg: UninextConfig) -> Dict[str, float]:
             "loss_reid_aux": l.reid_weight}
 
 
-def weighted_total(losses: Dict[str, torch.Tensor], weights: Dict[str, float]
-                   ) -> torch.Tensor:
+def weighted_total(losses: Dict[str, torch.Tensor], weights: Dict[str, float],
+                   task_weight: float = 1.0) -> torch.Tensor:
     """Sum of the losses, each at the weight of the longest key it equals or
     extends by "_..." ("loss_reid_aux" takes its own entry, "loss_ce_3" and
-    "loss_ce_enc" take "loss_ce")."""
+    "loss_ce_enc" take "loss_ce"), times `task_weight`."""
     total = None
     for k, v in losses.items():
         base, best = k, -1
         for key in weights:
             if (k == key or k.startswith(key + "_")) and len(key) > best:
                 base, best = key, len(key)
-        term = v * weights.get(base, 1.0)
+        term = v * weights.get(base, 1.0) * task_weight
         total = term if total is None else total + term
     return total
 
@@ -52,12 +54,14 @@ class TrainState:
     step: int = 0                   # micro-steps taken
 
 
-def build_train_state(cfg: UninextConfig, device="cuda", seed: int = 0
-                      ) -> TrainState:
+def build_train_state(cfg: UninextConfig, device="cuda", seed: int = 0,
+                      template: bool = False) -> TrainState:
     """A model with random weights from `seed` on `device` (the card unless
-    the caller asks for another), its optimizer, and the generator of the
-    step's random numbers (seeded from `seed` + 1)."""
-    model = build_model(cfg, device, seed).train()
+    the caller asks for another), with `template` the SOT/VOS template
+    branch too (every branch, as the JAX package's `init_all_paths` makes a
+    SOT state), its optimizer, and the generator of the step's random
+    numbers (seeded from `seed` + 1)."""
+    model = build_model(cfg, device, seed, template).train()
     generator = torch.Generator(device=torch.device(device))
     generator.manual_seed(seed + 1)
     return TrainState(model, build_optimizer(model, cfg.solver), generator)
@@ -73,15 +77,21 @@ def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
     device: images_key, images_ref, targets_key, targets_ref and the key
     frame's img_mask, image_sizes and text) goes through
     `forward_video_train` (`uninext_tpu/engine/train.py:
-    make_video_train_step`): the key frame's losses and the reid losses.
-    Returns (total, losses)."""
+    make_video_train_step`): the key frame's losses and the reid losses;
+    with `task="sot"` through `forward_sot_train` (the ref frame's template
+    as the prompt of a grounding pass on the key frame, no reid loss), the
+    total scaled by `loss.sot_loss_scale`. Returns (total, losses)."""
     video = "images_key" in batch
-    if video and task == "sot":
-        raise NotImplementedError("the SOT/VOS training step comes with the "
-                                  "SOT/VOS slice (forward_sot_train)")
+    if task == "sot" and not video:
+        raise ValueError("the SOT step takes a (key, ref) pair batch")
     if not accumulate:
         model.zero_grad(set_to_none=True)
-    if video:
+    if task == "sot":
+        losses = model.forward_sot_train(
+            batch["images_key"], batch["img_mask"], batch["image_sizes"],
+            batch["targets_key"], batch["targets_ref"], batch["images_ref"],
+            generator=generator, dn_noise=dn_noise)
+    elif video:
         losses = model.forward_video_train(
             batch["images_key"], batch["img_mask"], batch["image_sizes"],
             batch["text_ids"], batch["text_mask"], batch["targets_key"],
@@ -91,7 +101,8 @@ def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
                                      batch["image_sizes"], batch["text_ids"],
                                      batch["text_mask"], batch["targets"],
                                      generator=generator, dn_noise=dn_noise, task=task)
-    total = weighted_total(losses, weights)
+    total = weighted_total(losses, weights,
+                           model.cfg.loss.sot_loss_scale if task == "sot" else 1.0)
     total.backward()
     return total, losses
 

@@ -6,7 +6,8 @@ profiler, evaluation) and `resume_or_load`.
 
 With `video=True` the batches are (key, ref) pairs
 (`data/video.py:collate_video`), which `engine/train.py:train_step` takes
-through the two-frame forward.
+through the two-frame forward, or with `task="sot"` through the SOT step
+(whose state has the template branch).
 
 The JAX trainer's persistent compilation cache, device mesh, chunked
 steps (a scan of jitted steps) and TensorBoard writer do not carry over:
@@ -77,7 +78,7 @@ class Trainer:
                         JSONWriter(f"{output_dir}/metrics.json")]
         self.ckpt = CheckpointManager(f"{output_dir}/checkpoints")
         self._pending_first = next(loader)
-        self.state = build_train_state(cfg, self.device, seed)
+        self.state = build_train_state(cfg, self.device, seed, template=task == "sot")
         self.model = self.state.model
         self.hooks = default_hooks(
             cfg.solver, log_period=log_period, eval_fn=eval_fn,

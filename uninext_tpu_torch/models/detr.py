@@ -3,7 +3,9 @@ and ViT-H backbones: inference for detection and grounding (`forward`), the
 masks of selected queries (`predict_masks`), the reid embeddings of the
 video configs (`compute_reid`, the deformable reid head), the detection
 and grounding training losses (`forward_train`) and the two-frame (key,
-ref) video training losses (`forward_video_train`).
+ref) video training losses (`forward_video_train`), and, with the SOT/VOS
+template branch (`template=True`), the template prompt
+(`encode_template`) and the SOT training losses (`forward_sot_train`).
 
     (images, img_mask, prompt tokens) -> backbone -> input projections ->
     BERT prompt -> VL-fused deformable transformer (two-stage) ->
@@ -19,6 +21,10 @@ ref) video training losses (`forward_video_train`).
         two transformer passes, the key frame's losses, and the contrastive
         reid loss between the key frame's matched queries and the ref
         frame's queries]
+    [-> SOT/VOS: a template crop (`models/sot.py:crop_template`) through the
+        template backbone (4 channels) or the main one (3), the input
+        projections, the P3-P6 fuser or the per-level 8x8 resize, and
+        `adjust_layer` -> a pseudo-language prompt for a grounding pass]
 
 Public tensors keep the JAX layouts: images (B, H, W, 3) NHWC, normalised
 and padded to a multiple of 32; `img_mask` (B, H, W) True for padding.
@@ -30,16 +36,22 @@ Module nesting follows the reference UNINEXT checkpoint, so
 `detr.detr.{class_embed,bbox_embed,iou_head}.*`, `detr.controller.*` and
 `detr.mask_head.*` (the mask head), `detr.resizer.*` (the DN label encoder),
 `detr.reid_embed_head.*` (the reid head: `.0` the deformable decoder and
-`.1` the MLP, or the MLP alone) and `text_encoder.body.model.*` (HF
-BERT). `engine/convert.py` fills them from a JAX parameter tree.
+`.1` the MLP, or the MLP alone), `text_encoder.body.model.*` (HF BERT)
+and the template branch: `detr.detr.ref_backbone.0.backbone.*` (the
+4-channel template backbone), `detr.sot_fuser.refine.{i}.*` and
+`detr.adjust_layer.*`. `engine/convert.py` fills them from a JAX
+parameter tree.
+
+The template branch is built on request (`build_model(..., template=True)`,
+the SOT training state, the SOT/VOS/R-VOS drivers' models): a tree of the
+JAX package's image or video paths has none of it, as flax creates
+parameters only where a path runs.
 
 Random numbers of training (DN box noise, drop-path masks) come from an
 explicit `torch.Generator`, or the DN noise from the caller; the JAX
 package's `jax.random` stream is not reproduced.
 
-Not ported yet: the ConvNeXt backbone, BoxInst's mask losses and the
-SOT/VOS template branch (`template_backbone`, `sot_fuser`, `adjust_layer`,
-`encode_template`, `forward_sot_train`).
+Not ported yet: the ConvNeXt backbone and BoxInst's mask losses.
 """
 from __future__ import annotations
 
@@ -63,6 +75,7 @@ from .matcher import hungarian_match, ota_cost_and_iou, simota_match, vl_cost_ma
 from .position_encoding import position_embedding_sine
 from .postprocess import take_queries
 from .resnet import ResNet
+from .sot import FeatureFuser, crop_template, resize_level
 from .transformer import DecoderLayer, UninextTransformer
 from .vit import ViT
 
@@ -158,26 +171,32 @@ class _Nest(nn.Module):
         self.add_module(name, child)
 
 
+def build_trunk(cfg: UninextConfig, in_channels: int, dtype: torch.dtype) -> nn.Module:
+    """The backbone of `cfg` taking `in_channels` input channels (the
+    template backbone is the same family with 4)."""
+    b = cfg.backbone
+    if b.name == "resnet50":
+        return ResNet(in_channels=in_channels, dtype=dtype)
+    if b.name == "vit_huge":
+        return ViT(patch_size=b.vit_patch_size, embed_dim=b.vit_embed_dim,
+                   depth=b.vit_depth, num_heads=b.vit_num_heads,
+                   window_size=b.vit_window_size, global_blocks=b.vit_global_blocks,
+                   in_channels=in_channels, dtype=dtype,
+                   drop_path_rate=b.vit_drop_path_rate,
+                   use_checkpoint=b.vit_use_checkpoint)
+    raise NotImplementedError(f"backbone {b.name} is not ported yet")
+
+
 class DeformableDETR(nn.Module):
     """Backbone, input projections, transformer and heads (the reference's
-    `detr.detr`)."""
+    `detr.detr`); with `template` and `sot.extra_backbone_for_template`,
+    the 4-channel template backbone `ref_backbone`."""
 
-    def __init__(self, cfg: UninextConfig, dtype: torch.dtype):
+    def __init__(self, cfg: UninextConfig, dtype: torch.dtype, template: bool = False):
         super().__init__()
         t, b = cfg.transformer, cfg.backbone
-        if b.name == "resnet50":
-            trunk = ResNet(in_channels=b.in_channels, dtype=dtype)
-        elif b.name == "vit_huge":
-            trunk = ViT(patch_size=b.vit_patch_size, embed_dim=b.vit_embed_dim,
-                        depth=b.vit_depth, num_heads=b.vit_num_heads,
-                        window_size=b.vit_window_size,
-                        global_blocks=b.vit_global_blocks,
-                        in_channels=b.in_channels, dtype=dtype,
-                        drop_path_rate=b.vit_drop_path_rate,
-                        use_checkpoint=b.vit_use_checkpoint)
-        else:
-            raise NotImplementedError(f"backbone {b.name} is not ported yet")
-        self.backbone = nn.ModuleList([_Nest("backbone", trunk)])
+        self.backbone = nn.ModuleList([_Nest("backbone", build_trunk(cfg, b.in_channels,
+                                                                     dtype))])
         n_bb = len(b.out_channels)
         projs = []
         for i in range(t.num_feature_levels):
@@ -202,6 +221,8 @@ class DeformableDETR(nn.Module):
         self.iou_head = nn.ModuleList(
             Linear(t.d_model, 1) for _ in range(t.dec_layers))
         self.prior_prob = t.prior_prob
+        if template and cfg.sot.extra_backbone_for_template:
+            self.ref_backbone = nn.ModuleList([_Nest("backbone", build_trunk(cfg, 4, dtype))])
 
     def init_weights(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -235,12 +256,14 @@ class _DNWrapper(nn.Module):
     (`resizer`, language pool -> d_model), with the mask head enabled the
     `controller` (query -> dynamic mask parameters) and `mask_head`, and
     with `use_reid` the reid head `reid_embed_head`: [DeformableReidHead,
-    MLP] with `use_deformable_reid`, else the MLP alone."""
+    MLP] with `use_deformable_reid`, else the MLP alone; with `template`
+    the SOT/VOS template branch's `adjust_layer` (d_model -> the language
+    width, fp32) and, with `sot.feature_fusion`, `sot_fuser`."""
 
-    def __init__(self, cfg: UninextConfig, dtype: torch.dtype):
+    def __init__(self, cfg: UninextConfig, dtype: torch.dtype, template: bool = False):
         super().__init__()
         d = cfg.transformer.d_model
-        self.detr = DeformableDETR(cfg, dtype)
+        self.detr = DeformableDETR(cfg, dtype, template)
         self.resizer = FeatureResizer(cfg.language.hidden_dim, d)
         if cfg.mask_head.enabled:
             self.controller = MLP(d, d, num_gen_params(cfg.mask_head, d // 32), 3)
@@ -249,15 +272,20 @@ class _DNWrapper(nn.Module):
             mlp = MLP(d, d, d, cfg.reid_layers)
             self.reid_embed_head = (nn.ModuleList([DeformableReidHead(cfg, dtype), mlp])
                                     if cfg.use_deformable_reid else mlp)
+        if template:
+            self.adjust_layer = Linear(d, cfg.language.hidden_dim)
+            if cfg.sot.feature_fusion:
+                self.sot_fuser = FeatureFuser(d, cfg.transformer.num_feature_levels, dtype)
 
 
 class UninextDETR(nn.Module):
-    def __init__(self, cfg: UninextConfig):
+    def __init__(self, cfg: UninextConfig, template: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.template = template
         dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
         self.compute_dtype = dtype
-        self.detr = _DNWrapper(cfg, dtype)
+        self.detr = _DNWrapper(cfg, dtype, template)
         self.text_encoder = _Nest("body", _Nest("model", BertModel(cfg.language, dtype)))
         self._dn_masks: Dict[Tuple[int, torch.device], torch.Tensor] = {}
 
@@ -282,34 +310,86 @@ class UninextDETR(nn.Module):
                     ) -> Dict[str, torch.Tensor]:
         return self.bert(text_ids, text_mask)
 
+    def _levels(self, trunk: nn.Module, images: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+        """`trunk` on images, then the input projections: per-level (B, h,
+        w, C) fp32. `train` turns on a ViT's drop-path and checkpointing
+        (the frozen-BN ResNet has no train mode)."""
+        c = self.cfg
+        if c.backbone.name == "resnet50":
+            feats = trunk(images)
+        else:
+            feats = trunk(images, train=train, generator=generator)
+        level_feats = [feats[f"res{i + 3}"] for i in range(len(c.backbone.out_channels))]
+        srcs = []
+        for i, proj in enumerate(self.core.input_proj):
+            if i < len(level_feats):
+                srcs.append(proj(level_feats[i]))
+            elif i == len(level_feats):
+                srcs.append(proj(level_feats[-1]))
+            else:
+                srcs.append(proj(srcs[-1]))
+        return srcs
+
     def encode_image(self, images: torch.Tensor, img_mask: torch.Tensor,
                      train: bool = False,
                      generator: Optional[torch.Generator] = None):
         """images: (B, H, W, 3) normalised; img_mask: (B, H, W) True=pad.
         Returns per-level srcs (B, h, w, C) fp32, masks, sine positions.
         `train` turns on the backbone's drop-path and checkpointing."""
-        c = self.cfg
-        t = c.transformer
-        trunk = self.core.backbone[0].backbone
-        if c.backbone.name == "resnet50":       # frozen BN: no train mode
-            feats = trunk(images)
-        else:
-            feats = trunk(images, train=train, generator=generator)
-        level_feats = [feats[f"res{i + 3}"] for i in range(len(c.backbone.out_channels))]
-        srcs, masks, poses = [], [], []
-        for i, proj in enumerate(self.core.input_proj):
-            if i < len(level_feats):
-                x = proj(level_feats[i])
-            elif i == len(level_feats):
-                x = proj(level_feats[-1])
-            else:
-                x = proj(srcs[-1])
+        t = self.cfg.transformer
+        srcs = self._levels(self.core.backbone[0].backbone, images, train, generator)
+        masks, poses = [], []
+        for x in srcs:
             m = _downsample_mask(img_mask, (x.shape[1], x.shape[2]))
-            srcs.append(x)
             masks.append(m)
             poses.append(position_embedding_sine(m, t.d_model // 2,
                                                  dtype=self.compute_dtype))
         return srcs, masks, poses
+
+    def encode_template(self, template_images: torch.Tensor,
+                        template_pad_mask: Optional[torch.Tensor] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """Template crops (B, S, S, 3 or 4), normalised, with their pad mask
+        (B, S, S) True = crop padding (`models/sot.py:crop_template`) -> a
+        pseudo-language prompt {hidden (B, N, lang_dim) fp32, masks (B, N)
+        int32, 1 = valid, aggregate (B, lang_dim)}, as
+        `uninext_tpu/models/detr.py:encode_template`. A 4-channel crop goes
+        through the template backbone when the config has one, else through
+        the main backbone; then the input projections. With
+        `sot.feature_fusion` the fused stride-8 map is the prompt (N =
+        (S/8)^2: 1024 tokens for a 256 crop); without it each level is
+        resized (nearest) to ref_feat_size^2 and the levels concatenated
+        (N = L * 64). The masks come from the crop's pad mask, nearest-
+        downsampled to each level. `adjust_layer` runs in fp32 under any
+        compute dtype."""
+        c = self.cfg
+        d = c.transformer.d_model
+        if not self.template:
+            raise ValueError("encode_template: the model was built without the template "
+                             "branch (build_model(..., template=True))")
+        B, S = template_images.shape[:2]
+        if c.sot.extra_backbone_for_template and template_images.shape[-1] == 4:
+            trunk = self.core.ref_backbone[0].backbone
+        else:
+            trunk = self.core.backbone[0].backbone
+        levels = self._levels(trunk, template_images)
+        if template_pad_mask is None:
+            template_pad_mask = torch.zeros((B, S, S), dtype=torch.bool,
+                                            device=template_images.device)
+        lmasks = [_downsample_mask(template_pad_mask, (x.shape[1], x.shape[2]))
+                  for x in levels]
+        if c.sot.feature_fusion:
+            tok = self.detr.sot_fuser(levels).reshape(B, -1, d)
+            pad = lmasks[0].reshape(B, -1)
+        else:
+            r = c.sot.ref_feat_size
+            tok = torch.cat([resize_level(x, r).reshape(B, r * r, d) for x in levels], 1)
+            pad = torch.cat([resize_level(m[..., None].float(), r).reshape(B, r * r) > 0
+                             for m in lmasks], 1)
+        hidden = self.detr.adjust_layer(tok.float())
+        masks = (~pad).int()
+        return {"hidden": hidden, "masks": masks, "aggregate": agg_lang_feat(hidden, masks)}
 
     def _decode_outputs(self, trans, lvl: int, task: str = "detection",
                         lang_mask: Optional[torch.Tensor] = None
@@ -332,7 +412,8 @@ class UninextDETR(nn.Module):
     def forward(self, images: torch.Tensor, img_mask: torch.Tensor,
                 image_sizes: torch.Tensor, text_ids: Optional[torch.Tensor],
                 text_mask: torch.Tensor, task: str = "detection",
-                lang_dict: Optional[Dict[str, torch.Tensor]] = None) -> Dict:
+                lang_dict: Optional[Dict[str, torch.Tensor]] = None,
+                reid: bool = True) -> Dict:
         """Inference for `task` "detection" (a category prompt) or
         "grounding" (an expression). `lang_dict` (the output of
         `encode_text`) lets a server encode its category prompt once and
@@ -341,7 +422,9 @@ class UninextDETR(nn.Module):
         encoder `memory` and the level shapes of this input,
         `spatial_shapes`. The other layers' heads feed only the losses. With
         `use_reid`, `pred_embeds` (B, Q, d_model) fp32: the reid embedding
-        of every query (`compute_reid`)."""
+        of every query (`compute_reid`), unless `reid` is False (a caller
+        that reads no embedding: the SOT and VOS frame steps, whose JAX
+        counterparts XLA prunes of the reid head)."""
         if task not in ("detection", "grounding"):
             raise NotImplementedError(f"task {task!r} is not ported yet")
         t = self.cfg.transformer
@@ -357,7 +440,7 @@ class UninextDETR(nn.Module):
         out = self._decode_outputs(trans, t.dec_layers - 1, task, lang["masks"])
         out["memory"] = trans["memory"]
         out["spatial_shapes"] = tuple((s.shape[1], s.shape[2]) for s in srcs)
-        if self.cfg.use_reid:
+        if self.cfg.use_reid and reid:
             out["pred_embeds"] = self.compute_reid(
                 out["hs"], trans["inter_references"][-1], trans,
                 out["spatial_shapes"])
@@ -416,14 +499,18 @@ class UninextDETR(nn.Module):
 
 
     def forward_train(self, images: torch.Tensor, img_mask: torch.Tensor,
-                      image_sizes: torch.Tensor, text_ids: torch.Tensor,
-                      text_mask: torch.Tensor, targets: Dict[str, torch.Tensor],
+                      image_sizes: torch.Tensor, text_ids: Optional[torch.Tensor],
+                      text_mask: Optional[torch.Tensor], targets: Dict[str, torch.Tensor],
                       generator: Optional[torch.Generator] = None,
                       dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                      task: str = "detection") -> Dict[str, torch.Tensor]:
+                      task: str = "detection",
+                      lang_dict: Optional[Dict[str, torch.Tensor]] = None
+                      ) -> Dict[str, torch.Tensor]:
         """Training forward: the loss dict of
         `uninext_tpu/models/detr.py:__call__(..., train=True)` for `task`
-        "detection" (a category prompt) or "grounding" (an expression).
+        "detection" (a category prompt) or "grounding" (an expression, or
+        with `lang_dict` a prompt made elsewhere, which keeps its gradient:
+        the template prompt of `forward_sot_train`).
 
         targets: boxes (B, G, 4) cxcywh normalised, valid (B, G) bool,
         positive_map (B, G, T) bool (detection only), and with has_masks
@@ -434,9 +521,12 @@ class UninextDETR(nn.Module):
             raise NotImplementedError(f"task {task!r} is not ported yet")
         c = self.cfg
         t = c.transformer
-        lang = self.encode_text(text_ids, text_mask)
-        if c.language.freeze:
-            lang = {k: v.detach() for k, v in lang.items()}
+        if lang_dict is not None:
+            lang = lang_dict
+        else:
+            lang = self.encode_text(text_ids, text_mask)
+            if c.language.freeze:
+                lang = {k: v.detach() for k, v in lang.items()}
         srcs, masks, poses = self.encode_image(images, img_mask, train=True,
                                                generator=generator)
         dn_tgt = dn_ref = dn_q2g = attn_mask = None
@@ -469,6 +559,49 @@ class UninextDETR(nn.Module):
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         return self.compute_losses(layers, trans, targets, lang["masks"], dn_q2g,
                                    task, image_sizes, spatial_shapes)
+
+    def forward_sot_train(self, images_key: torch.Tensor, img_mask: torch.Tensor,
+                          image_sizes: torch.Tensor, targets_key: Dict[str, torch.Tensor],
+                          targets_ref: Dict[str, torch.Tensor], images_ref: torch.Tensor,
+                          generator: Optional[torch.Generator] = None,
+                          dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """The SOT/VOS training losses of
+        `uninext_tpu/models/detr.py:forward_sot_train` (reference
+        coco_forward_sot): the ref frame gives only a template, the crop
+        around its first valid slot's box (with the 4-channel template
+        backbone, the slot's gt mask, upsampled x4 by repetition and cut to
+        the ref image, as the 4th channel), encoded inside the
+        differentiated function (`encode_template`: the template backbone,
+        the fuser and `adjust_layer` get gradients); then one grounding
+        pass on the key frame with that prompt, DN queries included, and
+        its losses (`forward_train`). No reid loss. Key and ref share
+        `img_mask` and `image_sizes`."""
+        c = self.cfg
+        valid_r = targets_ref["valid"]
+        B = valid_r.shape[0]
+        ar = torch.arange(B, device=valid_r.device)
+        idx = valid_r.int().argmax(1)                     # the first valid slot
+        box_n = targets_ref["boxes"][ar, idx]             # cxcywh, normalised
+        hw = image_sizes.float()
+        w, h = hw[:, 1], hw[:, 0]
+        box_xyxy = torch.stack([(box_n[:, 0] - box_n[:, 2] / 2) * w,
+                                (box_n[:, 1] - box_n[:, 3] / 2) * h,
+                                (box_n[:, 0] + box_n[:, 2] / 2) * w,
+                                (box_n[:, 1] + box_n[:, 3] / 2) * h], 1)
+        mask_channel = c.sot.extra_backbone_for_template
+        gm = None
+        if mask_channel and "masks" in targets_ref:
+            m4 = targets_ref["masks"][ar, idx]            # (B, H/4, W/4)
+            gm = m4.repeat_interleave(4, 1).repeat_interleave(4, 2)
+            gm = gm[:, :images_ref.shape[1], :images_ref.shape[2]]
+        crop, pad = crop_template(images_ref, box_xyxy, c.sot.template_size,
+                                  c.sot.search_area_factor, gt_masks=gm,
+                                  mask_channel=mask_channel, pad_masks=img_mask)
+        lang = self.encode_template(crop, pad)
+        return self.forward_train(images_key, img_mask, image_sizes, None, None, targets_key,
+                                  generator=generator, dn_noise=dn_noise, task="grounding",
+                                  lang_dict=lang)
 
     def forward_video_train(self, images_key: torch.Tensor, img_mask: torch.Tensor,
                             image_sizes: torch.Tensor, text_ids: torch.Tensor,
@@ -678,13 +811,15 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
                 mod.init_weights(generator)
 
 
-def build_model(cfg: UninextConfig, device="cuda", seed: int = 0) -> UninextDETR:
+def build_model(cfg: UninextConfig, device="cuda", seed: int = 0,
+                template: bool = False) -> UninextDETR:
     """Build `UninextDETR` directly on `device` (the card unless the caller
     asks for another; no host copy of the weights, no use of the global
-    RNG) with random weights from `seed`."""
+    RNG) with random weights from `seed`; with `template`, the SOT/VOS
+    template branch too."""
     device = torch.device(device)
     with torch.device("meta"):
-        model = UninextDETR(cfg)
+        model = UninextDETR(cfg, template)
     model = model.to_empty(device=device)
     with torch.no_grad():
         for p in model.parameters():
