@@ -24,8 +24,7 @@ nonzero):
      sets (uniform, and shaped like the model's), also over CUDA graph
      replays, with the L2 volume it moves; NMS's keep mask equal to the
      plain version's, its wrapper eagerly and over graph replays, and the
-     one kernel the profiler sees it launch; kernel A on 4 of the 16 heads
-     of a global block beside SDPA (A′'s work on each card at k = 4);
+     one kernel the profiler sees it launch;
   3. backward kernels: A-bwd and MSDA-bwd against autograd through the
      plain versions at the training shapes, fp32 and bf16 (A-bwd: bf16 on
      the tensor cores, fp32 on the CUDA cores), timed the same way; A-bwd's
@@ -139,6 +138,22 @@ nonzero):
      finite), one referring val video through `RVOSDriver`; launches
      asserted as path "sot_loop"; MSDA and MSDA-bwd against their plain
      versions at every shape the loop gave them.
+ 17. parallel (`uninext_tpu_torch/parallel/`): the one-process ViT-H and
+     R50 steps of phase 6 and 8 as references, then 4 ranks spawned
+     (`parallel/mesh.py:launch`) that share the one card over gloo (NCCL
+     refuses two ranks on one device; with 2 or more cards the checks run
+     again over NCCL, one rank per card): A′ (`models/vit.py:
+     flash_rel_pos_attention_tp`, kernel A on each rank's heads) at k = 2
+     and 4 on ViT-H's global block and windows against its plain version
+     and the slice of kernel A on all 16 heads, each rank timed alone beside
+     SDPA; `image_joint_vit_huge` on a 1 dp x 2 tp mesh (ranks 0, 1) and
+     `image_joint_r50` on a 2 dp x 1 tp mesh (ranks 2, 3), one step each
+     from the reference's weights, batch and draws, held to it
+     (`PARALLEL_TOL`); launches per rank asserted (ViT-H: A′ and kernel A
+     64 of which 32 recomputes, A-bwd 32; MSDA 18, MSDA-bwd 12), as paths
+     "vith_tp_training" and "r50_dp_training"; peak memory per rank. Times
+     are of ranks sharing one card over gloo: no speed of the parallel
+     steps.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -424,26 +439,7 @@ def phase_kernels():
     a = rec["rel_pos_flash_attn"]
     print(f"[kernel A] tensor-core route, global block: {a['ms']:.4f} ms against SDPA's "
           f"{a['library_ms']:.4f} ms in this run")
-    # A' (the heads split over k cards) does on each card what A does on
-    # nh / k heads: at k = 4, a global block of 4 heads, bf16
-    nh, hd, dt = 16 // 4, 80, torch.bfloat16
-    base, rh, rw = _attention_inputs(dev, g, 1, H, W, nh, hd)
-    q, k, v = base.to(dt).unbind(2)
-    q5 = q.reshape(1, H, W, nh, hd)
-    args = (q5, k, v, rh.to(dt), rw.to(dt), hd ** -0.5)
-    err = _check(f"A' per card k=4 {dt}", vit.flash_rel_pos_attention(*args),
-                 vit.rel_pos_attention_plain(*args), tol[dt])
-    ms = _timed(lambda: vit.flash_rel_pos_attention(*args), 20)
-    sq, sk, sv, bias = _sdpa_args(q5, k, v, rh.to(dt), rw.to(dt))
-    lib = _timed(lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias), 20)
-    S = H * W
-    b_ms, b_by = _bound(2 * (4 * S * nh * hd + H * H * hd + W * W * hd),
-                        nh * (4 * S * S * hd + 2 * S * (H + W) * hd), "bf16")
-    a.update(tp4_ms=ms, tp4_library_ms=lib, tp4_bound_ms=b_ms)
-    print(f"[kernel A'] per card at k=4: kernel A on 1x{H}x{W}x{nh}x{hd} bf16: "
-          f"max_abs_err={err:.3g}, wrapper {ms:.4f} ms ({100 * b_ms / ms:.1f}% of its "
-          f"bound {b_ms:.4f} ms, {b_by}); SDPA with a float bias mask {lib:.4f} ms")
-    del base, q, k, v, q5, args, sq, sk, sv, bias
+    del base, q, k, v, q5, args
     torch.cuda.empty_cache()
 
     # MSDA: encoder (Lq = S = 20197) and decoder (Lq = 900) calls, on two
@@ -1120,6 +1116,7 @@ def _counters():
     from uninext_tpu_torch.ops import dma_gather, gather_fold, msda, nms
     return {"rel_pos_flash_attn": vit.rel_pos_flash_attn_mma,
             "rel_pos_flash_attn_fp32": vit.rel_pos_flash_attn_fp32,
+            "rel_pos_flash_attn_tp": vit.flash_rel_pos_attention_tp,
             "rel_pos_flash_attn_bwd": vit.rel_pos_flash_attn_bwd_mma,
             "rel_pos_flash_attn_bwd_fp32": vit.rel_pos_flash_attn_bwd_fp32,
             "ms_deform_attn_fwd": msda.ms_deform_attn,
@@ -2649,6 +2646,285 @@ def phase_sot_loop():
     return launches, checks
 
 
+PARALLEL_WATCH = {   # parameters the parallel phase holds to the one-process step
+    "vit": ("detr.detr.backbone.0.backbone.blocks.31.attn.qkv.weight",
+            "detr.detr.backbone.0.backbone.blocks.31.attn.proj.weight",
+            "detr.detr.backbone.0.backbone.blocks.31.attn.rel_pos_h",
+            "text_encoder.body.model.encoder.layer.11.intermediate.dense.weight",
+            "detr.detr.transformer.decoder.layers.5.cross_attn.value_proj.weight"),
+    "r50": ("detr.detr.backbone.0.backbone.res3.0.conv2.weight",
+            "text_encoder.body.model.encoder.layer.11.intermediate.dense.weight",
+            "detr.detr.transformer.decoder.layers.5.cross_attn.value_proj.weight"),
+}
+# One-process step against the k-rank step in bf16 (the row-parallel
+# partial sums are rounded to bf16 before their fp32 sum; a near-tie of the
+# matching may flip): the total loss within 3e-2 and the grad norm within
+# 1e-1 relative; each watched gradient (Adam's first moment) at a cosine of
+# at least 0.95 to the one-process one; each watched weight within 2.05
+# times the one-process step's largest move (Adam's first update moves a
+# weight by about lr, a flipped sign by 2 lr). The share of its entries
+# within 1% of that move is printed, not held: where a gradient is near 0
+# (unused rows of a rel-pos table) its sign is rounding noise.
+PARALLEL_TOL = {"total_loss": 3e-2, "grad_norm": 1e-1, "cosine": 0.95, "move": 2.05}
+
+
+def _one_process_reference(cfg, label, path_key, out, dev):
+    """The one-process step the parallel phase holds its ranks to: seed-0
+    weights, `_train_batch` and the state's generator, as every rank makes
+    them. Keeps the losses, the watched parameters before and after and
+    their first moments in `out[path_key]`."""
+    import torch
+    from uninext_tpu_torch.engine.train import build_train_state, train_step
+    state = build_train_state(cfg, dev, seed=0)
+    params = dict(state.model.named_parameters())
+    watch = PARALLEL_WATCH[path_key]
+    before = {n: params[n].detach().cpu().clone() for n in watch}
+    t0 = time.perf_counter()
+    m = train_step(state, _train_batch(cfg, dev))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    opt = state.optimizer
+    mu = {n: m_.detach().cpu().clone() for g, names in opt.names.items()
+          for n, m_ in zip(names, opt.mu[g]) if n in watch}
+    out[path_key] = {"metrics": {k: float(v) for k, v in m.items()}, "before": before,
+                     "after": {n: params[n].detach().cpu().clone() for n in watch},
+                     "mu": mu}
+    print(f"[parallel] one-process {label} step at bs={TRAIN_BATCH} (the reference of the "
+          f"ranks): total_loss {out[path_key]['metrics']['total_loss']:.6g}, grad norm "
+          f"{out[path_key]['metrics']['grad_norm']:.6g}, {ms:.1f} ms")
+    del state, params
+    torch.cuda.empty_cache()
+
+
+def _check_launches(label, launches, expect):
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches} != {expect}")
+
+
+def _hold_step(label, state, m, ref, mesh):
+    """A rank's step against the one-process reference (PARALLEL_TOL);
+    raises on a miss. Returns the numbers."""
+    import torch
+    import torch.nn.functional as F
+    from uninext_tpu_torch.parallel import sharding
+    got = {k: float(v) for k, v in m.items()}
+    out = {}
+    for key in ("total_loss", "grad_norm"):
+        want = ref["metrics"][key]
+        rel = abs(got[key] - want) / abs(want)
+        out[f"{key}_rel_err"] = rel
+        if not rel <= PARALLEL_TOL[key]:
+            raise AssertionError(f"{label}: {key} {got[key]} against one process's {want} "
+                                 f"(relative {rel:.3g} > {PARALLEL_TOL[key]})")
+    opt = state.optimizer
+    params = dict(state.model.named_parameters())
+    mus = {n: m_ for g, names in opt.names.items() for n, m_ in zip(names, opt.mu[g])}
+    for name in ref["after"]:
+        p = params[name]
+        cut = lambda t: sharding.cut_like(t.to(p.device), p, mesh)
+        step = (cut(ref["after"][name]) - cut(ref["before"][name])).abs().max().item()
+        diff = (p.detach() - cut(ref["after"][name])).abs()
+        agree = (diff <= 0.01 * step).float().mean().item()
+        cos = F.cosine_similarity(mus[name].flatten().float(),
+                                  cut(ref["mu"][name]).flatten().float(), dim=0).item()
+        short = name.split(".", 2)[-1]
+        out[short] = {"max_diff_over_step": diff.max().item() / step, "agree": agree,
+                      "mu_cosine": cos, "shape": list(p.shape)}
+        if not (diff.max().item() <= PARALLEL_TOL["move"] * step
+                and cos >= PARALLEL_TOL["cosine"]):
+            raise AssertionError(f"{label}: {name} {out[short]} against {PARALLEL_TOL}")
+    return got, out
+
+
+def _a_prime_rank(dev, mesh, k):
+    """A′ on this rank's heads of ViT-H's global block (1x50x76) and its 24
+    windows of 14x14, bf16: against the plain version on the same heads and
+    against the slice of kernel A on all 16 heads; then, one rank at a time
+    (the others wait), its time, the plain version's and SDPA's with a float
+    bias mask on the same heads."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from uninext_tpu_torch.models import vit
+    nh, hd, dt = 16, 80, torch.bfloat16
+    nl = nh // k
+    heads = slice(mesh.model_rank * nl, (mesh.model_rank + 1) * nl)
+    g = torch.Generator(device=dev).manual_seed(0)          # the same on every rank
+    H, W = IMAGE_HW[0] // 16, IMAGE_HW[1] // 16
+    rec = {}
+    for label, (B, h, w) in (("global", (1, H, W)), ("window", (24, 14, 14))):
+        S = h * w
+        base, rh, rw = _attention_inputs(dev, g, B, h, w, nh, hd)
+        rh, rw = rh.to(dt), rw.to(dt)
+        q, kk, v = base.to(dt).unbind(2)
+        whole = vit.flash_rel_pos_attention(q.reshape(B, h, w, nh, hd), kk, v, rh, rw,
+                                            hd ** -0.5)
+        lq, lk, lv = base.to(dt)[:, :, :, heads].contiguous().unbind(2)
+        args = (lq.reshape(B, h, w, nl, hd), lk, lv, rh, rw, hd ** -0.5)
+        got = vit.flash_rel_pos_attention_tp(*args)
+        err = _check(f"A' k={k} {label}", got, vit.rel_pos_attention_plain(*args), 3.2e-2)
+        err_a = _check(f"A' k={k} {label} against kernel A on all heads", got,
+                       whole.reshape(B, h, w, nh, hd)[..., heads, :].reshape(got.shape),
+                       3.2e-2)
+        sq, sk, sv, bias = _sdpa_args(*args[:5])
+        b_ms, b_by = _bound(2 * (4 * B * S * nl * hd + h * h * hd + w * w * hd),
+                            B * nl * (4 * S * S * hd + 2 * S * (h + w) * hd), "bf16")
+        times = None
+        for turn in range(mesh.model_size):
+            dist.barrier(group=mesh.model_group)
+            if turn == mesh.model_rank:
+                times = (_timed(lambda: vit.flash_rel_pos_attention_tp(*args), 20),
+                         _timed(lambda: vit.rel_pos_attention_plain(*args), 3),
+                         _timed(lambda: F.scaled_dot_product_attention(
+                             sq, sk, sv, attn_mask=bias), 20))
+        dist.barrier(group=mesh.model_group)
+        ms, pms, lib = times
+        print(f"[parallel] A' k={k} rank {mesh.rank} (heads {heads.start}-{heads.stop - 1}) "
+              f"{label} B={B} {h}x{w}x{nl}x{hd} bf16: max_abs_err {err:.3g} against the plain "
+              f"version, {err_a:.3g} against kernel A on all 16 heads (tol 3.2e-2); {ms:.4f} ms "
+              f"({100 * b_ms / ms:.1f}% of its bound {b_ms:.4f} ms, {b_by}), plain {pms:.3f} "
+              f"ms, SDPA with a float bias mask {lib:.4f} ms (alone on the card)", flush=True)
+        rec[label] = {"max_abs_err": max(err, err_a), "ms": ms, "plain_ms": pms,
+                      "library_ms": lib, "bound_ms": b_ms, "bound_by": b_by}
+        del base, q, kk, v, whole, lq, lk, lv, got, sq, sk, sv, bias
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _parallel_rank(dev, ref_path):
+    """One rank of the parallel phase: A′ at k = 2 (ranks 0, 1) and k = 4;
+    the ViT-H step on a 1 dp x 2 tp mesh (ranks 0, 1) and the R50 step on a
+    2 dp x 1 tp mesh (ranks 2, 3, or 0, 1 with two ranks), each held to the
+    one-process step; kernel launches counted around each step."""
+    import torch
+    import torch.distributed as dist
+    from uninext_tpu_torch.config import image_joint_r50, image_joint_vit_huge
+    from uninext_tpu_torch.engine.train import build_train_state, train_step
+    from uninext_tpu_torch.models import vit
+    from uninext_tpu_torch.parallel.mesh import create_mesh, shard_batch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world, rank = dist.get_world_size(), dist.get_rank()
+    # every rank makes every group, in one order
+    tp = create_mesh(2, ranks=[0, 1])
+    dp = create_mesh(1, ranks=[2, 3] if world >= 4 else [0, 1])
+    m4 = create_mesh(4, ranks=[0, 1, 2, 3]) if world >= 4 else None
+    out = {"rank": rank}
+    if tp is not None:
+        out["a_prime_k2"] = _a_prime_rank(dev, tp, 2)
+    if m4 is not None:
+        out["a_prime_k4"] = _a_prime_rank(dev, m4, 4)
+    ref = torch.load(ref_path, map_location="cpu", weights_only=True)
+    counters = _counters()
+    steps = [("vit", image_joint_vit_huge(), tp, True)] if tp is not None else []
+    if dp is not None:
+        steps.append(("r50", image_joint_r50(), dp, False))
+    for key, cfg, mesh, cut in steps:
+        label = (f"image_joint_vit_huge 1 dp x 2 tp rank {rank}" if cut else
+                 f"image_joint_r50 2 dp x 1 tp rank {rank}")
+        state = build_train_state(cfg, dev, seed=0, mesh=mesh, tp=cut)
+        batch = shard_batch(_train_batch(cfg, dev), mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        vit.flash_rel_pos_attention.recompute_launches = 0
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: c.launches for k, c in counters.items()}
+        recompute = vit.flash_rel_pos_attention.recompute_launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        got, held = _hold_step(label, state, m, ref[key], mesh)
+        t = cfg.transformer
+        n_msda = t.enc_layers + t.dec_layers
+        expect = {**dict.fromkeys(counters, 0),
+                  "ms_deform_attn_fwd": n_msda + (t.enc_layers if cfg.remat_encoder else 0),
+                  "ms_deform_attn_bwd": n_msda}
+        if cut:
+            blocks = cfg.backbone.vit_depth
+            n_a = blocks * (2 if cfg.backbone.vit_use_checkpoint else 1)
+            expect.update(rel_pos_flash_attn=n_a, rel_pos_flash_attn_tp=n_a,
+                          rel_pos_flash_attn_bwd=blocks)
+        _check_launches(label, launches, expect)
+        print(f"[parallel] {label}: bs={batch['images'].shape[0]} on this rank at "
+              f"{IMAGE_HW[0]}x{IMAGE_HW[1]}; step {ms:.1f} ms (gloo on one card: not a speed "
+              f"of the parallel step), peak device memory {peak:.2f} GiB; total_loss "
+              f"{got['total_loss']:.6g} (one process {ref[key]['metrics']['total_loss']:.6g}), "
+              f"grad norm {got['grad_norm']:.6g} ({ref[key]['metrics']['grad_norm']:.6g}); "
+              f"held: {json.dumps(held)}; launches {launches}"
+              + (f", of kernel A {recompute} recomputes, A' {launches['rel_pos_flash_attn_tp']}"
+                 f" at {16 // 2} heads" if cut else ""), flush=True)
+        out[key] = {"launches": launches, "recompute": recompute, "ms": ms, "peak_gib": peak,
+                    "metrics": got, "held": held}
+        del state, batch, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_parallel(vit_h, r50):
+    """Data and tensor parallelism on the card: the one-process references,
+    then 4 ranks (`parallel/mesh.py:launch`, spawned) that share the one
+    card over gloo (NCCL refuses two ranks on one device); with 2 or more
+    cards the same checks again over NCCL, one rank per card. Returns the
+    records of A′ and the launches of the two parallel steps, summed over
+    their ranks."""
+    import tempfile
+    import torch
+    from uninext_tpu_torch.parallel.mesh import launch
+    t0 = time.perf_counter()
+    refs = {}
+    dev = torch.device("cuda")
+    _one_process_reference(vit_h, "image_joint_vit_huge", "vit", refs, dev)
+    _one_process_reference(r50, "image_joint_r50", "r50", refs, dev)
+    n_cards = torch.cuda.device_count()
+    runs = [("gloo", 4)]
+    if n_cards >= 2:
+        runs.append(("nccl", min(4, n_cards)))
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_path = os.path.join(tmp, "reference.pt")
+        torch.save(refs, ref_path)
+        results = {}
+        for backend, n in runs:
+            print(f"[parallel] {n} ranks over {backend}, torch.cuda.device_count() = "
+                  f"{n_cards}: " + ("the ranks share one card (NCCL refuses two ranks on one "
+                                    "device)" if backend == "gloo" else "one rank per card"),
+                  flush=True)
+            results[backend] = launch(_parallel_rank, n, backend, None, ref_path)
+    ranks = results["gloo"]
+    count = lambda key: {k: sum(r[key]["launches"][k] for r in ranks if key in r)
+                         for k in ranks[0]["vit"]["launches"]}
+    launches = {"vith_tp_training": count("vit"), "r50_dp_training": count("r50")}
+    k2 = [r["a_prime_k2"] for r in ranks if "a_prime_k2" in r]
+    k4 = [r["a_prime_k4"] for r in ranks if "a_prime_k4" in r]
+    a = k2[0]["global"]
+    rec = {"max_abs_err": max(x[lbl]["max_abs_err"] for x in k2 + k4 for lbl in x),
+           **{key: a[key] for key in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+           "shape": "global 1x50x76x8x80 bf16 per rank at k=2 (kernel A on the rank's heads)",
+           "launches_per_rank": [r["vit"]["launches"]["rel_pos_flash_attn_tp"]
+                                 for r in ranks if "vit" in r],
+           "peak_gib_per_rank": {p: [r[p]["peak_gib"] for r in ranks if p in r]
+                                 for p in ("vit", "r50")},
+           "step_rel_err": {p: [{k: r[p]["held"][k] for k in ("total_loss_rel_err",
+                                                               "grad_norm_rel_err")}
+                                for r in ranks if p in r] for p in ("vit", "r50")}}
+    for tag, per in (("k2", k2), ("k4", k4)):
+        for lbl in ("global", "window"):
+            rec[f"{tag}_{lbl}_ms_per_rank"] = [x[lbl]["ms"] for x in per]
+            rec[f"{tag}_{lbl}_plain_ms_per_rank"] = [x[lbl]["plain_ms"] for x in per]
+            rec[f"{tag}_{lbl}_library_ms_per_rank"] = [x[lbl]["library_ms"] for x in per]
+            rec[f"{tag}_{lbl}_bound_ms"] = per[0][lbl]["bound_ms"]
+    if "nccl" in results:
+        rec["nccl_ranks"] = len(results["nccl"])
+    print(f"[parallel] done in {time.perf_counter() - t0:.1f} s: A' per rank at k=2 "
+          f"{rec['k2_global_ms_per_rank']} ms, at k=4 {rec['k4_global_ms_per_rank']} ms "
+          f"(ranks timed one at a time on the one card; SDPA {rec['k2_global_library_ms_per_rank']}"
+          f", {rec['k4_global_library_ms_per_rank']}); A' launches per ViT-H TP rank "
+          f"{rec['launches_per_rank']}", flush=True)
+    return rec, launches
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -2701,6 +2977,9 @@ SOURCES = {
                            "uninext_tpu/models/vit.py:131"),
     "rel_pos_flash_attn_fp32": ("uninext_tpu_torch/csrc/rel_pos_flash_attn.cu",
                                 "uninext_tpu/models/vit.py:131 (fp32 inputs)"),
+    "rel_pos_flash_attn_tp": ("uninext_tpu_torch/csrc/rel_pos_flash_attn_mma.cu",
+                              "uninext_tpu/models/vit.py:195 flash_rel_pos_attention_tp "
+                              "(A': kernel A on each rank's heads)"),
     "rel_pos_flash_attn_bwd": (
         "uninext_tpu_torch/csrc/rel_pos_flash_attn_bwd_mma.cu",
         "uninext_tpu/models/vit.py:131 under jax.grad: jax/experimental/pallas/ops/"
@@ -2768,6 +3047,7 @@ def main():
     sot_vith, vith_rec = phase_sot_vith()
     sot_loop, sot_loop_checks = phase_sot_loop()
     rec["ms_deform_attn_fwd"].update(sot_rec)
+    rec["rel_pos_flash_attn_tp"], parallel = phase_parallel(vit_h, r50)
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
     a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in vith_rec.items()
@@ -2789,6 +3069,7 @@ def main():
                    **{path: n[name] for path, n in sot_serving.items()},
                    "sot_training": sot_training[name], "sot_vith": sot_vith[name],
                    "sot_loop": sot_loop[name],
+                   **{path: n[name] for path, n in parallel.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -2804,13 +3085,13 @@ def main():
                                              "window_library_ms", "window_bound_ms",
                                              "graph_ms", "eager_ms", "model_ms", "model_graph_ms",
                                              "decoder_ms", "decoder_model_ms", "level0_graph_ms",
-                                             "level3_graph_ms", "tp4_ms", "tp4_library_ms",
-                                             "tp4_bound_ms", "loop_max_abs_err",
+                                             "level3_graph_ms", "loop_max_abs_err",
                                              "loop_max_rel_err", "loop_shapes")
                            if k in r},
                         **{k: v for k, v in r.items()
                            if k.startswith(("vis_", "mot_", "video_", "sot_", "vos_",
-                                            "rvos_"))}})
+                                            "rvos_", "k2_", "k4_", "launches_per_rank",
+                                            "peak_gib_per_rank", "step_rel_err", "nccl_"))}})
         k = kernels[-1]
         if "kernel_ms" in k:
             k["kernel_bound_share"] = k["bound_ms"] / k["kernel_ms"]

@@ -101,7 +101,9 @@ def test_port_runs_without_jax():
     its data pipeline, checkpoints and COCO evaluation, and the video
     family (`VISDriver` over 2 frames, a two-frame train step, the VIS
     fixture tool's loop) and SOT (a template encode and a SOT frame through
-    `SOTDriver`, a SOT train step), at a tiny size,
+    `SOTDriver`, a SOT train step), the C++ COCO matcher (built in the
+    child if no earlier run left it), and the parallel layer (one train step
+    on a mesh of one rank), at a tiny size,
     leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
     without them."""
@@ -196,7 +198,15 @@ def test_port_runs_without_jax():
             assert json.load(open(root + "/ap.json")) == json.loads(json.dumps(res))
         assert res["step_ms"]["steps"] == 2 and res["eval_seconds_per_image"]["images"] == 2
         assert all(res[k][m] is not None for k in ("bbox", "segm") for m in ("AP", "AP50"))
-        assert any(m.startswith("libcocoeval") for m in os.listdir(fast_eval.BUILD_DIR))
+        # the C++ matcher itself, built here if no earlier run left it in
+        # build/: the 2-step run above may match no detection at all
+        ious = np.array([[0.9, 0.2], [0.6, 0.55], [0.1, 0.8]], np.float32)
+        args = (ious, np.array([0, 1], np.uint8), np.array([0.5, 0.75], np.float32),
+                np.zeros(3, np.uint8))
+        got = fast_eval.coco_match(*args)
+        assert all((a == b).all() for a, b in zip(got, fast_eval.coco_match_numpy(*args)))
+        assert fast_eval.library.cache_info().currsize == 1
+        assert fast_eval.library_path().exists()
         # the video family: VISDriver over 2 frames of tiny_video_test_config
         # with the deformable reid head, one two-frame train step, and the
         # fixture tool's loop (mini-YTVIS, Trainer(video=True), VISDriver,
@@ -241,6 +251,27 @@ def test_port_runs_without_jax():
             "img_mask": img_mask, "image_sizes": sizes, "targets_key": tk,
             "targets_ref": tk}, task="sot")
         assert torch.isfinite(metrics["total_loss"]) and "loss_reid" not in metrics
+        # the parallel layer: one train step of the small ViT config with
+        # its towers cut, on a mesh of one rank (gloo, CPU)
+        import socket
+        import torch.distributed as dist
+        import uninext_tpu_torch.parallel
+        from uninext_tpu_torch.parallel.mesh import create_mesh, init_distributed, shard_batch
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost",
+                          MASTER_PORT=str(port))
+        init_distributed("gloo", "cpu")
+        mesh = create_mesh(1)
+        state = build_train_state(cfg, "cpu", seed=3, mesh=mesh, tp=True)
+        metrics = train_step(state, shard_batch({
+            "images": images, "img_mask": img_mask, "image_sizes": sizes,
+            "text_ids": torch.from_numpy(p_ids).long()[None].expand(2, 16),
+            "text_mask": torch.from_numpy(p_mask)[None].expand(2, 16),
+            "targets": targets}, mesh))
+        assert torch.isfinite(metrics["total_loss"]) and state.mesh is mesh
+        dist.destroy_process_group()
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"))
         print("JAX_MODULES", bad)

@@ -222,3 +222,42 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+# ---- ranks of the parallel tests ----------------------------------------------
+# Module-level functions, so that `parallel/mesh.py:launch` can start them in
+# new processes; they import no JAX.
+
+def parallel_step_rank(device, cfg, k, state_path, batch, noise, out_dir):
+    """One rank of a (n/k, k) mesh: the train state with the weights of the
+    whole state dict at `state_path` (None: the seed-0 weights), cut with
+    tensor parallelism when k > 1, one step on the rank's rows of `batch`
+    with the rank's rows of the DN `noise` (None: the state's generator),
+    then a checkpoint of step 1 in `out_dir`. Returns the step's losses and
+    grad norm (the whole batch's), and the A′ and kernel-A calls."""
+    import torch
+
+    from uninext_tpu_torch.engine.checkpoint import CheckpointManager
+    from uninext_tpu_torch.engine.train import build_train_state, loss_and_grads, loss_weights
+    from uninext_tpu_torch.models import vit
+    from uninext_tpu_torch.parallel import comm, sharding
+    from uninext_tpu_torch.parallel.mesh import create_mesh, shard_batch
+
+    torch.set_num_threads(1)
+    mesh = create_mesh(k)
+    state = build_train_state(cfg, device, seed=0, mesh=mesh, tp=k > 1)
+    if state_path is not None:
+        whole = torch.load(state_path, weights_only=True)
+        state.model.load_state_dict(sharding.cut_state_dict(state.model, whole, mesh))
+    rows = shard_batch(batch, mesh)
+    noise = None if noise is None else tuple(shard_batch(n, mesh) for n in noise)
+    total, losses = loss_and_grads(state.model, rows, loss_weights(cfg), state.generator,
+                                   dn_noise=noise, mesh=mesh)
+    norm = state.optimizer.step()
+    state.step += 1
+    out = {"total_loss": total, **losses, "grad_norm": norm}
+    out = dict(zip(out, (float(v) for v in comm.mean_over_data(list(out.values()), mesh))))
+    CheckpointManager(out_dir).save(1, state)
+    heads = {n: m.num_heads for n, m in state.model.named_modules()
+             if isinstance(m, vit.Attention)}
+    return {"metrics": out, "heads": heads, "mesh": (mesh.data_rank, mesh.model_rank)}

@@ -12,5 +12,6 @@ layers -> heads -> `postprocess_detection`) and its training step (DN
 queries, matching, losses, backward, clip, per-group AdamW;
 `engine/train.py`), and the two MSDA lab tools (`tools/`). Its
 hand-written Hopper kernels live in `csrc/` and are bound in `ops/` and
-`models/vit.py`.
+`models/vit.py`. Data and tensor parallelism on `torch.distributed` live
+in `parallel/`.
 """

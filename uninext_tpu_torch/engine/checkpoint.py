@@ -8,6 +8,13 @@ One file per saved step, `<directory>/ckpt_<step>.pt`, written whole and
 then renamed into place; the oldest beyond `max_to_keep` are deleted. Not
 ported: the stage hand-off `load_stage_weights` and its 4-channel
 inflation (they wait for SOT/VOS).
+
+Over a mesh (`state.mesh`) every rank calls `save`: the tensor-parallel
+shards of the parameters and of both Adam moments are joined over the
+model group (`parallel/sharding.py`), so the file holds the whole model
+under the one-process state's names and does not depend on k, and the
+mesh's first rank writes it. `restore` loads the whole file on every rank
+and cuts it to the rank's shards.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from ..parallel import sharding
 from .train import TrainState
 
 _NAME = re.compile(r"ckpt_(\d+)\.pt$")
@@ -50,17 +58,23 @@ class CheckpointManager:
         if opt.accumulating:
             raise ValueError(f"checkpoint at micro-step {step}: {opt.mini_step} of "
                              f"{opt.accum} micro-steps of an update are pending")
+        mesh = state.mesh
+        moments = {name: {g: [sharding.whole(t, p, mesh) for t, p in zip(m[g], opt.params[g])]
+                          for g in m} for name, m in (("mu", opt.mu), ("nu", opt.nu))}
         payload = {
-            "model": state.model.state_dict(),
-            "optimizer": {"mu": opt.mu, "nu": opt.nu, "count": opt.count},
+            "model": sharding.whole_state_dict(state.model, mesh),
+            "optimizer": {**moments, "count": opt.count},
             "step": state.step,
             "generator": state.generator.get_state(),
         }
-        tmp = self.path(step) + f".{os.getpid()}.tmp"
-        torch.save(payload, tmp)
-        os.replace(tmp, self.path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        if mesh is None or mesh.rank == mesh.ranks[0]:
+            tmp = self.path(step) + f".{os.getpid()}.tmp"
+            torch.save(payload, tmp)
+            os.replace(tmp, self.path(step))
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        if mesh is not None and mesh.group is not None:
+            torch.distributed.barrier(group=mesh.group)
 
     def _load(self, step: Optional[int]):
         step = self.latest_step() if step is None else step
@@ -75,11 +89,13 @@ class CheckpointManager:
         ckpt = self._load(step)
         if ckpt is None:
             return state, False
-        state.model.load_state_dict(ckpt["model"])
+        mesh = state.mesh
+        state.model.load_state_dict(sharding.cut_state_dict(state.model, ckpt["model"], mesh))
         opt, saved = state.optimizer, ckpt["optimizer"]
-        for g in opt.params:
-            torch._foreach_copy_(opt.mu[g], saved["mu"][g])
-            torch._foreach_copy_(opt.nu[g], saved["nu"][g])
+        for g, ps in opt.params.items():
+            for name in ("mu", "nu"):
+                torch._foreach_copy_(getattr(opt, name)[g], [
+                    sharding.cut_like(t, p, mesh) for t, p in zip(saved[name][g], ps)])
         opt.count, opt.mini_step = saved["count"], 0
         state.model.zero_grad(set_to_none=True)
         state.step = ckpt["step"]
@@ -97,7 +113,8 @@ class CheckpointManager:
             return state, True
         if init_weights_path and os.path.exists(init_weights_path):
             sd = torch.load(init_weights_path, map_location="cpu", weights_only=True)
-            state.model.load_state_dict(sd.get("model", sd))
+            state.model.load_state_dict(sharding.cut_state_dict(
+                state.model, sd.get("model", sd), state.mesh))
         return state, False
 
 

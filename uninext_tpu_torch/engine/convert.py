@@ -422,15 +422,20 @@ def state_dict_from_jax(params, fill: Callable = fill_model
 
 
 def load_jax_params(module: torch.nn.Module, params,
-                    fill: Callable = fill_model) -> None:
+                    fill: Callable = fill_model, mesh=None) -> None:
     """Fill `module` (by default a whole `UninextDETR`) from a JAX tree.
     Raises if a JAX leaf is left over or a port parameter is not filled,
     with one exception: a video tree (one with the reid head) initialised
     through the video training path has no DN label encoder (that step makes
     no DN queries, so flax never creates `dn_resizer`), and the port's
     `detr.resizer.*` then keeps the values it has. An image tree without
-    `dn_resizer` raises."""
+    `dn_resizer` raises. A module cut over a `mesh`'s model group
+    (`parallel/sharding.py:shard_module`) is filled from the whole tree,
+    each parameter cut to the rank's shard."""
     sd = state_dict_from_jax(params, fill)
+    if mesh is not None:
+        from ..parallel.sharding import cut_state_dict
+        sd = cut_state_dict(module, sd, mesh)
     with torch.no_grad():
         missing, unexpected = module.load_state_dict(sd, strict=False)
     if fill is fill_model and any(k.startswith(REID_ROOT) for k in sd):

@@ -129,7 +129,9 @@ class BestCheckpointer(HookBase):
 
 class EvalHook(HookBase):
     """Run `eval_fn(model) -> dict` every `period` micro-steps, record the
-    results under eval/ and pass them to every hook's after_eval."""
+    results under eval/ and pass them to every hook's after_eval. Over a
+    mesh it runs on every rank (a cut model's forward needs them all), and
+    the first rank's results count."""
 
     def __init__(self, period: int, eval_fn: Callable):
         self.period = period
@@ -139,6 +141,13 @@ class EvalHook(HookBase):
         if self.period <= 0 or (trainer.storage.iter + 1) % self.period:
             return
         results = self.eval_fn(trainer.model)
+        mesh = getattr(trainer, "mesh", None)
+        if mesh is not None and mesh.group is not None:
+            # every rank keeps the first rank's results, so that the hooks
+            # after it (a best checkpoint, a collective) decide alike
+            box = [results]
+            torch.distributed.broadcast_object_list(box, src=mesh.ranks[0], group=mesh.group)
+            results = box[0]
         trainer.storage.put_scalars(
             **{f"eval/{k}": v for k, v in results.items()
                if isinstance(v, (int, float))})

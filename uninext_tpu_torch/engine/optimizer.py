@@ -30,6 +30,13 @@ first moment in bf16, as optax's `mu_dtype`: each update forms the new
 moment in fp32 from the stored one, uses it, and stores it rounded; the
 stored moment decays by b1 rounded to bf16 (0.8984375), as JAX computes it
 (the Python constant takes the moment's dtype).
+
+Over a mesh (`parallel/mesh.py`) each update first averages the
+gradients over it (`parallel/comm.py:sync_grads`), so that they are the
+gradient of the whole batch's loss, and the clip's norm counts every
+parameter once: the squared norms of the tensor-parallel shards are summed
+over the model group, the replicated parameters' taken once. The moments
+live on the shards.
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import numpy as np
 import torch
 
 from ..config import SolverConfig
+from ..parallel import comm
 from . import convert
 
 
@@ -92,9 +100,12 @@ class AdamW:
     def __init__(self, named_params: Iterable[Tuple[str, torch.nn.Parameter]],
                  cfg: SolverConfig, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8,
-                 path_of: Callable[[str], str] = convert.jax_module_path):
+                 path_of: Callable[[str], str] = convert.jax_module_path,
+                 mesh=None):
         """`path_of` maps a parameter name to the JAX path its group is
-        classified by (the bridge's mapping for `UninextDETR`)."""
+        classified by (the bridge's mapping for `UninextDETR`); `mesh` the
+        ranks the gradients are averaged over (None: one process)."""
+        self.mesh = mesh
         if cfg.adam_mu_dtype not in (None, "bfloat16", "float32"):
             raise ValueError(f"adam_mu_dtype {cfg.adam_mu_dtype!r}")
         self.cfg = cfg
@@ -130,12 +141,20 @@ class AdamW:
             return None
         self.mini_step = 0
         all_params = [p for ps in self.params.values() for p in ps]
+        comm.sync_grads(all_params, self.mesh)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in all_params]
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
-        norm = torch.linalg.vector_norm(torch.stack(
-            torch._foreach_norm(grads, 2.0))).float()
+        norms = torch._foreach_norm(grads, 2.0)
+        group = None if self.mesh is None else self.mesh.model_group
+        if group is None:
+            norm = torch.linalg.vector_norm(torch.stack(norms)).float()
+        else:
+            cut = [getattr(p, "tp_kind", "") == "sharded" for p in all_params]
+            sq = lambda ns: torch.stack(ns).float().square().sum()
+            norm = (comm.all_reduce(sq([n for n, c in zip(norms, cut) if c]), group)
+                    + sq([n for n, c in zip(norms, cut) if not c])).sqrt()
         # optax's select, on the device: below the limit g / 1 * 1 == g exactly
         keep = norm < self.cfg.grad_clip
         one = torch.ones_like(norm)
@@ -181,5 +200,5 @@ class AdamW:
         return norm
 
 
-def build_optimizer(model: torch.nn.Module, cfg: SolverConfig) -> AdamW:
-    return AdamW(model.named_parameters(), cfg)
+def build_optimizer(model: torch.nn.Module, cfg: SolverConfig, mesh=None) -> AdamW:
+    return AdamW(model.named_parameters(), cfg, mesh=mesh)

@@ -8,6 +8,15 @@ through `UninextDETR.forward_video_train`, or with `task="sot"` through
 the total scaled by `loss.sot_loss_scale`). Compute runs in the config's
 dtype (bf16) with fp32 parameters and optimizer state, as in the JAX
 package; no loss scaling. The loop around it is `engine/trainer.py`.
+
+Over a mesh (`parallel/mesh.py`; the counterpart of `make_train_step(mesh,
+tp)` and `make_video_train_step(mesh)`) every rank takes the step on its
+rows of the whole batch: the random draws are the whole batch's cut to its
+rows, the loss normalisers are the whole batch's, the optimizer averages
+the gradients over the mesh, and the returned losses are averaged over the
+data group, so that a k-rank step equals the one-process step on the whole
+batch. With `tp` the towers are cut over the model group
+(`parallel/sharding.py`).
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ import torch
 
 from ..config import UninextConfig
 from ..models.detr import UninextDETR, build_model
+from ..parallel import comm, sharding
+from ..parallel.mesh import Mesh, replicated
 from .optimizer import AdamW, build_optimizer
 
 
@@ -52,25 +63,37 @@ class TrainState:
     optimizer: AdamW
     generator: torch.Generator      # DN box noise and drop-path masks
     step: int = 0                   # micro-steps taken
+    mesh: Optional[Mesh] = None     # the ranks of the step; None: one process
 
 
 def build_train_state(cfg: UninextConfig, device="cuda", seed: int = 0,
-                      template: bool = False) -> TrainState:
+                      template: bool = False, mesh: Optional[Mesh] = None,
+                      tp: bool = False) -> TrainState:
     """A model with random weights from `seed` on `device` (the card unless
     the caller asks for another), with `template` the SOT/VOS template
     branch too (every branch, as the JAX package's `init_all_paths` makes a
     SOT state), its optimizer, and the generator of the step's random
-    numbers (seeded from `seed` + 1)."""
+    numbers (seeded from `seed` + 1). Over a `mesh` (the counterpart of
+    `create_train_state(..., mesh, tp)`) every rank makes the same whole
+    weights, broadcast over the data group to be sure, and with `tp` cuts
+    the towers over the model group; the optimizer's moments follow the
+    shards."""
     model = build_model(cfg, device, seed, template).train()
+    if mesh is not None:
+        replicated(list(model.parameters()) + list(model.buffers()), mesh)
+        if tp:
+            sharding.shard_module(model, mesh)
     generator = torch.Generator(device=torch.device(device))
     generator.manual_seed(seed + 1)
-    return TrainState(model, build_optimizer(model, cfg.solver), generator)
+    return TrainState(model, build_optimizer(model, cfg.solver, mesh), generator,
+                      mesh=mesh)
 
 
 def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
                    generator: Optional[torch.Generator] = None,
                    dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                   task: str = "detection", accumulate: bool = False):
+                   task: str = "detection", accumulate: bool = False,
+                   mesh: Optional[Mesh] = None):
     """Forward in train mode, the weighted total and its backward: the
     gradients land in the parameters' `.grad`, replacing what is there
     unless `accumulate`. A pair batch (`data/video.py:collate_video` on the
@@ -80,7 +103,8 @@ def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
     make_video_train_step`): the key frame's losses and the reid losses;
     with `task="sot"` through `forward_sot_train` (the ref frame's template
     as the prompt of a grounding pass on the key frame, no reid loss), the
-    total scaled by `loss.sot_loss_scale`. Returns (total, losses)."""
+    total scaled by `loss.sot_loss_scale`. Under a `mesh` the batch is this
+    rank's rows (`forward_train`'s `mesh`). Returns (total, losses)."""
     video = "images_key" in batch
     if task == "sot" and not video:
         raise ValueError("the SOT step takes a (key, ref) pair batch")
@@ -90,17 +114,19 @@ def loss_and_grads(model: UninextDETR, batch: Dict, weights: Dict[str, float],
         losses = model.forward_sot_train(
             batch["images_key"], batch["img_mask"], batch["image_sizes"],
             batch["targets_key"], batch["targets_ref"], batch["images_ref"],
-            generator=generator, dn_noise=dn_noise)
+            generator=generator, dn_noise=dn_noise, mesh=mesh)
     elif video:
         losses = model.forward_video_train(
             batch["images_key"], batch["img_mask"], batch["image_sizes"],
             batch["text_ids"], batch["text_mask"], batch["targets_key"],
-            batch["targets_ref"], batch["images_ref"], task=task, generator=generator)
+            batch["targets_ref"], batch["images_ref"], task=task, generator=generator,
+            mesh=mesh)
     else:
         losses = model.forward_train(batch["images"], batch["img_mask"],
                                      batch["image_sizes"], batch["text_ids"],
                                      batch["text_mask"], batch["targets"],
-                                     generator=generator, dn_noise=dn_noise, task=task)
+                                     generator=generator, dn_noise=dn_noise, task=task,
+                                     mesh=mesh)
     total = weighted_total(losses, weights,
                            model.cfg.loss.sot_loss_scale if task == "sot" else 1.0)
     total.backward()
@@ -117,13 +143,17 @@ def train_step(state: TrainState, batch: Dict, task: str = "detection"
     step reads to the host only the encoder matching costs (Hungarian),
     simOTA's fix-up checks and the clip decision. With a frozen language
     model its parameters get no gradient; the optimizer takes a zero
-    gradient for them and still decays them, as optax's chain does."""
+    gradient for them and still decays them, as optax's chain does. Over
+    `state.mesh` the batch is this rank's rows (`parallel/mesh.py:
+    shard_batch`), and the returned losses are the whole batch's."""
     weights = loss_weights(state.model.cfg)
     total, losses = loss_and_grads(state.model, batch, weights, state.generator,
-                                   task=task, accumulate=state.optimizer.accumulating)
+                                   task=task, accumulate=state.optimizer.accumulating,
+                                   mesh=state.mesh)
     grad_norm = state.optimizer.step()
     state.step += 1
     out = {"total_loss": total.detach(), **{k: v.detach() for k, v in losses.items()}}
+    out = dict(zip(out, comm.mean_over_data(list(out.values()), state.mesh)))
     if grad_norm is not None:
         out["grad_norm"] = grad_norm
     return out

@@ -16,6 +16,16 @@ terminal and `metrics.json`. `cfg.solver.max_iter`, the schedule and every hook
 period count optimizer updates; with `grad_accum_steps` k the loop runs
 `max_iter * k` micro-steps and `state.step` counts micro-steps, as in the
 JAX package.
+
+Over a mesh (`parallel/mesh.py`; `cfg.parallel.model_parallel_size` is its
+model group's size, as in the JAX trainer) every rank runs this loop on
+batches of its own loader (built with `process_index` = the rank's data
+rank and `process_count` = the data group's size), the state is cut over
+the model group when that is larger than 1, and the losses it logs are
+averaged over the data group (`train_step`). Event writers and the
+profiler run on the mesh's first rank only, which also writes the
+checkpoints; the checkpoint and eval hooks run on every rank, since joining
+a cut model's shards and its forward are collectives.
 """
 from __future__ import annotations
 
@@ -59,13 +69,27 @@ class Trainer:
                  eval_period: int = 5000,
                  log_period: int = 20,
                  profile_iters: Optional[tuple] = None,
-                 extra_hooks: Optional[List] = None):
+                 extra_hooks: Optional[List] = None,
+                 mesh=None):
         """`loader` yields collated batches (a "__task__" key routes a batch
         to its task, else `task`). The model gets random weights from
         `seed` on `device` (the card unless the caller asks for another).
         `eval_fn(model) -> dict` runs every `eval_period` updates. With
         `video` the batches must be (key, ref) pairs, without it image
-        batches; a batch of the other kind raises."""
+        batches; a batch of the other kind raises. With a `mesh` the loader
+        must be this rank's (its `process_index` and `process_count`, where
+        it has them, the rank's data rank and the data group's size)."""
+        if mesh is not None:
+            if mesh.model_size != cfg.parallel.model_parallel_size:
+                raise ValueError(f"mesh model groups of {mesh.model_size} != "
+                                 f"model_parallel_size {cfg.parallel.model_parallel_size}")
+            shard = (getattr(loader, "process_index", mesh.data_rank),
+                     getattr(loader, "process_count", mesh.data_size))
+            if shard != (mesh.data_rank, mesh.data_size):
+                raise ValueError(f"loader reads shard {shard}, this rank is data rank "
+                                 f"{mesh.data_rank} of {mesh.data_size}")
+        first = mesh is None or mesh.rank == mesh.ranks[0]
+        self.mesh = mesh
         self.cfg = cfg
         self.loader = loader
         self.task = task
@@ -75,14 +99,15 @@ class Trainer:
         self.accum = max(1, cfg.solver.grad_accum_steps)
         self.storage = EventStorage()
         self.writers = [TerminalWriter(cfg.solver.max_iter * self.accum),
-                        JSONWriter(f"{output_dir}/metrics.json")]
+                        JSONWriter(f"{output_dir}/metrics.json")] if first else []
         self.ckpt = CheckpointManager(f"{output_dir}/checkpoints")
         self._pending_first = next(loader)
-        self.state = build_train_state(cfg, self.device, seed, template=task == "sot")
+        self.state = build_train_state(cfg, self.device, seed, template=task == "sot",
+                                       mesh=mesh, tp=mesh is not None and mesh.model_size > 1)
         self.model = self.state.model
         self.hooks = default_hooks(
             cfg.solver, log_period=log_period, eval_fn=eval_fn,
-            eval_period=eval_period, profile_iters=profile_iters,
+            eval_period=eval_period, profile_iters=profile_iters if first else None,
             profile_dir=f"{output_dir}/profile",
             schedule_fn=lr_schedule(cfg.solver), accum_steps=self.accum)
         if extra_hooks:

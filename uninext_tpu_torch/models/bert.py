@@ -14,7 +14,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import LanguageConfig
-
+from ..parallel.comm import copy_to_model
 from .layers import LayerNorm, Linear
 
 
@@ -57,9 +57,17 @@ class _Intermediate(nn.Module):
 
 
 class BertLayer(nn.Module):
+    """Under tensor parallelism (`parallel/sharding.py:shard_module` sets
+    `model_group` and cuts the heads) the layer holds nh / k local heads:
+    query, key, value and intermediate are column-parallel, the attention
+    output and the FFN output row-parallel."""
+
+    model_group = None
+
     def __init__(self, c: LanguageConfig, dtype=torch.float32):
         super().__init__()
         self.num_heads = c.num_heads
+        self.head_dim = c.hidden_dim // c.num_heads
         self.compute_dtype = dtype
         self.attention = _Attention(c, dtype)
         self.intermediate = _Intermediate(c, dtype)
@@ -68,19 +76,19 @@ class BertLayer(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_bias: torch.Tensor) -> torch.Tensor:
         B, L, C = x.shape
-        nh = self.num_heads
-        hd = C // nh
+        nh, hd = self.num_heads, self.head_dim
         sa = self.attention.self
-        q = sa.query(x).reshape(B, L, nh, hd)
-        k = sa.key(x).reshape(B, L, nh, hd)
-        v = sa.value(x).reshape(B, L, nh, hd)
+        xm = copy_to_model(x, self.model_group)
+        q = sa.query(xm).reshape(B, L, nh, hd)
+        k = sa.key(xm).reshape(B, L, nh, hd)
+        v = sa.value(xm).reshape(B, L, nh, hd)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(hd)
         scores = (scores + attn_bias).clamp(-50000, 50000)
         probs = scores.float().softmax(-1).to(self.compute_dtype)
-        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, C)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs, v).reshape(B, L, nh * hd)
         ao = self.attention.output
         x = ao.LayerNorm(x + ao.dense(out))
-        h = F.gelu(self.intermediate.dense(x))
+        h = F.gelu(self.intermediate.dense(copy_to_model(x, self.model_group)))
         return self.output.LayerNorm(x + self.output.dense(h))
 
 

@@ -15,6 +15,7 @@ from typing import Dict, Optional
 import torch
 
 from ..config import LossConfig
+from ..parallel.comm import global_count
 from ..utils import box_ops
 
 
@@ -57,10 +58,11 @@ def loss_labels_vl(pred_logits: torch.Tensor, positive_map: torch.Tensor,
 
 def loss_boxes(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor,
                q2g: torch.Tensor, num_boxes: torch.Tensor,
-               pred_boxious: Optional[torch.Tensor] = None
+               pred_boxious: Optional[torch.Tensor] = None, mesh=None
                ) -> Dict[str, torch.Tensor]:
     """L1 and GIoU over matched pairs, and with `pred_boxious` the IoU
-    branch's BCE against the (detached) IoU of each matched pair.
+    branch's BCE against the (detached) IoU of each matched pair, over the
+    whole batch's matched count (over `mesh`'s data group).
     pred_boxes (B, Q, 4) cxcywh; gt_boxes (B, G, 4); q2g (B, Q)."""
     matched = (q2g >= 0).float()
     tgt = gather_by_match(gt_boxes, q2g)
@@ -73,7 +75,7 @@ def loss_boxes(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor,
     if pred_boxious is not None:
         iou_tgt = box_ops.elementwise_box_iou(pred_xyxy, tgt_xyxy).detach()
         bce = sigmoid_ce(pred_boxious[..., 0].float(), iou_tgt)
-        out["loss_boxiou"] = (bce * matched).sum() / matched.sum().clamp(min=1.0)
+        out["loss_boxiou"] = (bce * matched).sum() / global_count(matched.sum(), mesh)
     return out
 
 
@@ -101,7 +103,7 @@ def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
 
 
 def loss_reid_static(contrast: torch.Tensor, labels3: torch.Tensor,
-                     row_valid: torch.Tensor, cos_sim: torch.Tensor
+                     row_valid: torch.Tensor, cos_sim: torch.Tensor, mesh=None
                      ) -> Dict[str, torch.Tensor]:
     """The contrastive reid loss of `uninext_tpu/models/criterion.py:181`.
 
@@ -114,7 +116,9 @@ def loss_reid_static(contrast: torch.Tensor, labels3: torch.Tensor,
     and a zero, computed as softplus(LSE_j(c_j) + LSE_i(-c_i)) without the
     (R, Q*Q) tensor. A row with no positive or no negative (or not valid)
     adds 0, as there, and gets no gradient. The aux term is the weighted
-    mean of (cos - label)^2, negatives weighted to ~10x the positive count."""
+    mean of (cos - label)^2, negatives weighted to ~10x the positive count.
+    Both are means over the whole batch's valid rows (over `mesh`'s data
+    group)."""
     pos = labels3 == 1
     neg = labels3 == 0
     row_valid = row_valid.float()
@@ -126,7 +130,7 @@ def loss_reid_static(contrast: torch.Tensor, labels3: torch.Tensor,
     lse_pos = torch.logsumexp(torch.where(pos_v, -contrast, low), -1)
     x = torch.where(has, lse_neg + lse_pos, 0.0)
     contras = torch.where(has, torch.nn.functional.softplus(x), 0.0)
-    n = row_valid.sum().clamp(min=1.0)
+    n = global_count(row_valid.sum(), mesh)
     loss_contrast = (contras * row_valid).sum() / n
 
     n_pos = pos.sum(-1).clamp(min=1)

@@ -64,6 +64,8 @@ from torch import nn
 import numpy as np
 
 from ..config import UninextConfig
+from ..parallel.comm import global_count
+from ..parallel.mesh import rows_of_draw
 from ..utils import box_ops
 from ..utils.misc import agg_lang_feat, inverse_sigmoid
 from . import criterion as crit
@@ -125,12 +127,15 @@ def prepare_dn_static(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
                       label_enc: torch.Tensor, box_noise_scale: float,
                       noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                       generator: Optional[torch.Generator] = None,
-                      single_pad: int = DN_SINGLE_PAD, groups: int = DN_GROUPS):
+                      single_pad: int = DN_SINGLE_PAD, groups: int = DN_GROUPS,
+                      mesh=None):
     """Contrastive denoising queries with a fixed layout: `groups` groups of
     a positive and a negative copy of the first `single_pad` gts per image.
 
     `noise` = (sign, part), each (B, groups, 2, single_pad, 4): sign in
-    {-1, 1}, part in [0, 1); drawn from `generator` when not given. Returns
+    {-1, 1}, part in [0, 1); drawn from `generator` when not given (under
+    data parallelism, `mesh`, the whole batch's draw cut to this rank's
+    rows). Returns
     dn_tgt (B, pad, C), dn_ref_unact (B, pad, 4) and dn_q2g (B, pad): the
     gt a positive slot reconstructs, else -1."""
     B, G = gt_valid.shape
@@ -142,9 +147,11 @@ def prepare_dn_static(gt_boxes: torch.Tensor, gt_valid: torch.Tensor,
     valid = gt_valid[:, :single_pad]
     b = boxes[:, None, None].expand(B, groups, 2, single_pad, 4)
     if noise is None:
-        sign = torch.randint(0, 2, b.shape, generator=generator,
-                             device=dev).float() * 2 - 1
-        part = torch.rand(b.shape, generator=generator, device=dev)
+        shape = lambda n: (n,) + b.shape[1:]
+        sign = rows_of_draw(lambda n: torch.randint(0, 2, shape(n), generator=generator,
+                                                    device=dev), B, mesh).float() * 2 - 1
+        part = rows_of_draw(lambda n: torch.rand(shape(n), generator=generator, device=dev),
+                            B, mesh)
     else:
         sign, part = noise
     is_neg = torch.tensor([0.0, 1.0], device=dev).reshape(1, 1, 2, 1, 1)
@@ -311,7 +318,8 @@ class UninextDETR(nn.Module):
         return self.bert(text_ids, text_mask)
 
     def _levels(self, trunk: nn.Module, images: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
+                generator: Optional[torch.Generator] = None, mesh=None
+                ) -> List[torch.Tensor]:
         """`trunk` on images, then the input projections: per-level (B, h,
         w, C) fp32. `train` turns on a ViT's drop-path and checkpointing
         (the frozen-BN ResNet has no train mode)."""
@@ -319,7 +327,7 @@ class UninextDETR(nn.Module):
         if c.backbone.name == "resnet50":
             feats = trunk(images)
         else:
-            feats = trunk(images, train=train, generator=generator)
+            feats = trunk(images, train=train, generator=generator, mesh=mesh)
         level_feats = [feats[f"res{i + 3}"] for i in range(len(c.backbone.out_channels))]
         srcs = []
         for i, proj in enumerate(self.core.input_proj):
@@ -333,12 +341,12 @@ class UninextDETR(nn.Module):
 
     def encode_image(self, images: torch.Tensor, img_mask: torch.Tensor,
                      train: bool = False,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None, mesh=None):
         """images: (B, H, W, 3) normalised; img_mask: (B, H, W) True=pad.
         Returns per-level srcs (B, h, w, C) fp32, masks, sine positions.
         `train` turns on the backbone's drop-path and checkpointing."""
         t = self.cfg.transformer
-        srcs = self._levels(self.core.backbone[0].backbone, images, train, generator)
+        srcs = self._levels(self.core.backbone[0].backbone, images, train, generator, mesh)
         masks, poses = [], []
         for x in srcs:
             m = _downsample_mask(img_mask, (x.shape[1], x.shape[2]))
@@ -504,8 +512,8 @@ class UninextDETR(nn.Module):
                       generator: Optional[torch.Generator] = None,
                       dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
                       task: str = "detection",
-                      lang_dict: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      lang_dict: Optional[Dict[str, torch.Tensor]] = None,
+                      mesh=None) -> Dict[str, torch.Tensor]:
         """Training forward: the loss dict of
         `uninext_tpu/models/detr.py:__call__(..., train=True)` for `task`
         "detection" (a category prompt) or "grounding" (an expression, or
@@ -516,7 +524,10 @@ class UninextDETR(nn.Module):
         positive_map (B, G, T) bool (detection only), and with has_masks
         True the instance masks (B, G, H/4, W/4) in {0, 1}, which add the
         mask losses. Drop-path masks and, unless `dn_noise` = (sign, part)
-        is given, the DN box noise come from `generator`."""
+        is given, the DN box noise come from `generator`. Under data
+        parallelism (`mesh`; the batch is this rank's rows) the draws are
+        the whole batch's, cut to this rank's rows, and every loss
+        normaliser is the whole batch's (`parallel/comm.py:global_count`)."""
         if task not in ("detection", "grounding"):
             raise NotImplementedError(f"task {task!r} is not ported yet")
         c = self.cfg
@@ -528,14 +539,14 @@ class UninextDETR(nn.Module):
             if c.language.freeze:
                 lang = {k: v.detach() for k, v in lang.items()}
         srcs, masks, poses = self.encode_image(images, img_mask, train=True,
-                                               generator=generator)
+                                               generator=generator, mesh=mesh)
         dn_tgt = dn_ref = dn_q2g = attn_mask = None
         if t.use_dino and t.dn_number > 0:
             label_enc = self.detr.resizer(agg_lang_feat(lang["hidden"], lang["masks"]))
             single_pad = min(DN_SINGLE_PAD, c.data.max_insts)
             dn_tgt, dn_ref, dn_q2g = prepare_dn_static(
                 targets["boxes"], targets["valid"], label_enc, t.box_noise_scale,
-                noise=dn_noise, generator=generator, single_pad=single_pad)
+                noise=dn_noise, generator=generator, single_pad=single_pad, mesh=mesh)
             attn_mask = self._dn_attn_mask(single_pad, images.device)
         core = self.core
         trans = core.transformer(
@@ -558,14 +569,14 @@ class UninextDETR(nn.Module):
             layers.append(layer)
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         return self.compute_losses(layers, trans, targets, lang["masks"], dn_q2g,
-                                   task, image_sizes, spatial_shapes)
+                                   task, image_sizes, spatial_shapes, mesh)
 
     def forward_sot_train(self, images_key: torch.Tensor, img_mask: torch.Tensor,
                           image_sizes: torch.Tensor, targets_key: Dict[str, torch.Tensor],
                           targets_ref: Dict[str, torch.Tensor], images_ref: torch.Tensor,
                           generator: Optional[torch.Generator] = None,
-                          dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-                          ) -> Dict[str, torch.Tensor]:
+                          dn_noise: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                          mesh=None) -> Dict[str, torch.Tensor]:
         """The SOT/VOS training losses of
         `uninext_tpu/models/detr.py:forward_sot_train` (reference
         coco_forward_sot): the ref frame gives only a template, the crop
@@ -601,15 +612,15 @@ class UninextDETR(nn.Module):
         lang = self.encode_template(crop, pad)
         return self.forward_train(images_key, img_mask, image_sizes, None, None, targets_key,
                                   generator=generator, dn_noise=dn_noise, task="grounding",
-                                  lang_dict=lang)
+                                  lang_dict=lang, mesh=mesh)
 
     def forward_video_train(self, images_key: torch.Tensor, img_mask: torch.Tensor,
                             image_sizes: torch.Tensor, text_ids: torch.Tensor,
                             text_mask: torch.Tensor, targets_key: Dict[str, torch.Tensor],
                             targets_ref: Dict[str, torch.Tensor], images_ref: torch.Tensor,
                             task: str = "detection",
-                            generator: Optional[torch.Generator] = None
-                            ) -> Dict[str, torch.Tensor]:
+                            generator: Optional[torch.Generator] = None,
+                            mesh=None) -> Dict[str, torch.Tensor]:
         """The two-frame (key, ref) training losses of
         `uninext_tpu/models/detr.py:forward_video_train`: one backbone pass
         over the 2B clip, a transformer pass for each frame (no DN queries),
@@ -622,7 +633,10 @@ class UninextDETR(nn.Module):
         the object is valid in both frames. Both frames share `img_mask`.
         The ref frame's decoder gets no gradient (its heads, references and,
         with `detach_reid`, its states are stopped); the reid head's
-        attention to both frames' memories reaches both encoders."""
+        attention to both frames' memories reaches both encoders. Under data
+        parallelism (`mesh`) the normalisers are the whole batch's; a ViT's
+        drop-path masks are then a block of the whole draw per rank, not
+        the one-process step's (the video configs' R50 draws none)."""
         c = self.cfg
         if not c.use_reid:
             raise ValueError("video training needs a config with use_reid")
@@ -635,7 +649,7 @@ class UninextDETR(nn.Module):
             lang = {k: v.detach() for k, v in lang.items()}
         srcs, masks, poses = self.encode_image(
             torch.cat([images_key, images_ref]), torch.cat([img_mask, img_mask]),
-            train=True, generator=generator)
+            train=True, generator=generator, mesh=mesh)
         core = self.core
         heads = dict(enc_class_head=core.class_embed[t.dec_layers],
                      enc_bbox_head=core.bbox_embed[t.dec_layers],
@@ -650,7 +664,7 @@ class UninextDETR(nn.Module):
                   for lvl in range(t.dec_layers)]
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
         losses = self.compute_losses(layers, trans_k, targets_key, lang["masks"], None,
-                                     task, image_sizes, spatial_shapes)
+                                     task, image_sizes, spatial_shapes, mesh)
 
         valid_k, valid_r = targets_key["valid"], targets_ref["valid"]
         last = core.class_embed[t.dec_layers - 1]
@@ -686,15 +700,15 @@ class UninextDETR(nn.Module):
         row_valid = (valid_k & valid_r).float()
         losses.update(crit.loss_reid_static(
             contrast.reshape(B * G, Q), labels3.reshape(B * G, Q),
-            row_valid.reshape(B * G), cos.reshape(B * G, Q)))
+            row_valid.reshape(B * G), cos.reshape(B * G, Q), mesh))
         return losses
 
     def compute_losses(self, layers: List[Dict[str, torch.Tensor]], trans,
                        targets: Dict[str, torch.Tensor], lang_mask: torch.Tensor,
                        dn_q2g: Optional[torch.Tensor], task: str = "detection",
                        image_sizes: Optional[torch.Tensor] = None,
-                       spatial_shapes: Tuple[Tuple[int, int], ...] = ()
-                       ) -> Dict[str, torch.Tensor]:
+                       spatial_shapes: Tuple[Tuple[int, int], ...] = (),
+                       mesh=None) -> Dict[str, torch.Tensor]:
         """Per-layer matching and losses (`uninext_tpu/models/detr.py:525`):
         simOTA for the decoder layers, Hungarian for the encoder proposals,
         the DN slots by construction; with has_masks, the mask losses of each
@@ -714,7 +728,7 @@ class UninextDETR(nn.Module):
         else:
             positive_map = targets["positive_map"] & gt_valid[..., None]
             text_mask = lang_mask.float()
-        num_boxes_global = gt_valid.sum().float().clamp(min=1.0)
+        num_boxes_global = global_count(gt_valid.sum(), mesh)
         suffix = lambda lvl: "" if lvl == t.dec_layers - 1 else f"_{lvl}"
 
         mask_feats = None
@@ -738,12 +752,12 @@ class UninextDETR(nn.Module):
                                           gt_valid, lcfg.set_cost_class,
                                           lcfg.set_cost_box, lcfg.set_cost_giou)
                     q2g = hungarian_match(cost, gt_valid)
-            n_matched = (q2g >= 0).sum().float().clamp(min=1.0)
+            n_matched = global_count((q2g >= 0).sum(), mesh)
             num_boxes = n_matched if lcfg.ota else num_boxes_global
             out = {"loss_ce": crit.loss_labels_vl(layer["pred_logits"], positive_map,
                                                   q2g, text_mask, num_boxes, lcfg)}
             out.update(crit.loss_boxes(layer["pred_boxes"], gt_boxes, q2g, num_boxes,
-                                       layer.get("pred_boxious")))
+                                       layer.get("pred_boxious"), mesh))
             if mask_feats is not None:
                 sel_q, sel_valid = select_matched(q2g, c.mask_head.max_insts)
                 params = self.detr.controller(take_queries(layer["hs"], sel_q))

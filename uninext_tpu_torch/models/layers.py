@@ -17,11 +17,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.msda import ms_deform_attn
+from ..parallel.comm import reduce_from_model
 from ..utils.misc import host_constant
 
 
 class Linear(nn.Linear):
-    """nn.Linear computing in `dtype` (flax Dense with `dtype`)."""
+    """nn.Linear computing in `dtype` (flax Dense with `dtype`). A
+    row-parallel shard (`reduce_group` set by `parallel/sharding.py:
+    shard_module`) sums its partial outputs over that group in fp32 and adds
+    its bias once, after the sum."""
+
+    reduce_group = None
 
     def __init__(self, in_features: int, out_features: int,
                  dtype: torch.dtype = torch.float32):
@@ -30,7 +36,11 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        if self.reduce_group is None:
+            return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        y = reduce_from_model(F.linear(x.to(dt), self.weight.to(dt)).float(),
+                              self.reduce_group)
+        return (y + self.bias.float()).to(dt)
 
 
 class Conv2d(nn.Conv2d):

@@ -16,6 +16,13 @@ Training adds stochastic depth (masks drawn before each block from an
 explicit generator) and per-block activation checkpointing
 (`torch.utils.checkpoint`, the JAX package's `nn.remat` of each block).
 
+Under tensor parallelism (`parallel/sharding.py:shard_module`) each block
+holds nh / k heads: qkv and fc1 are column-parallel, proj and fc2
+row-parallel, and the attention, global and windowed, is A′
+(`flash_rel_pos_attention_tp`: kernel A on the rank's heads). The JAX
+package's ViT turns its flash path off under a "model" axis; the outputs
+are the same.
+
 Parameter names follow the reference D2ViT (`backbone/vit.py:233-432`):
 patch_embed.proj, pos_embed, blocks.{i}.{norm1,attn.{qkv,proj,rel_pos_h,
 rel_pos_w},norm2,mlp.{fc1,fc2}}, fpn1.0 (the 2x2 stride-2 deconvolution
@@ -34,6 +41,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import _build
+from ..parallel.comm import copy_to_model
+from ..parallel.mesh import rows_of_draw
 from ..utils.misc import checkpointed, recomputing
 from .layers import Conv2d, LayerNorm, Linear
 
@@ -431,6 +440,23 @@ def flash_rel_pos_attention(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
 
 flash_rel_pos_attention.launches = 0
 flash_rel_pos_attention.recompute_launches = 0
+
+
+def flash_rel_pos_attention_tp(q, k, v, Rh, Rw, scale: float) -> torch.Tensor:
+    """A′, the counterpart of `uninext_tpu/models/vit.py:195
+    flash_rel_pos_attention_tp`: kernel A (`flash_rel_pos_attention`, under
+    autograd with kernel A-bwd as its backward) on this rank's heads. q, k
+    and v hold the nh / k heads of the rank's column-parallel qkv shard
+    (`parallel/sharding.py` cuts q, k and v by heads), Rh and Rw are whole;
+    no collective runs inside, and the head-major output (B, H, W, nh/k *
+    hd) is the input shard the row-parallel `proj` takes. `launches` counts
+    its launches of kernel A (its calls on CUDA tensors)."""
+    if q.is_cuda:
+        flash_rel_pos_attention_tp.launches += 1
+    return flash_rel_pos_attention(q, k, v, Rh, Rw, scale)
+
+
+flash_rel_pos_attention_tp.launches = 0
 rel_pos_flash_attn_mma.launches = 0
 rel_pos_flash_attn_fp32.launches = 0
 rel_pos_flash_attn_bwd.launches = 0
@@ -439,27 +465,36 @@ rel_pos_flash_attn_bwd_fp32.launches = 0
 
 
 def drop_path_masks(batch: int, rate: float, generator: Optional[torch.Generator],
-                    device) -> torch.Tensor:
+                    device, mesh=None) -> torch.Tensor:
     """Per-sample stochastic-depth scales (reference timm DropPath,
     `uninext_tpu/models/vit.py:109`): (2, B) of 0 or 1/keep, one row for
     the attention branch and one for the MLP branch of a block. Drawn before
-    the block runs, so a checkpointed block's recompute sees the same masks."""
+    the block runs, so a checkpointed block's recompute sees the same masks.
+    Under data parallelism (`mesh`) the draw is the whole batch's, cut to
+    this rank's rows."""
     keep = 1.0 - rate
-    u = torch.rand((2, batch), generator=generator, device=device)
+    u = rows_of_draw(lambda n: torch.rand((2, n), generator=generator, device=device),
+                     batch, mesh, dim=1)
     return (u < keep).float() / keep
 
 
 class Attention(nn.Module):
     """Attention over a (H, W) grid with the decomposed rel-pos bias.
     `rel_pos_size` is the span the tables are stored at; other grid sizes
-    resize them (`interp_rel_pos`)."""
+    resize them (`interp_rel_pos`). Under tensor parallelism
+    (`parallel/sharding.py:shard_module` sets `model_group` and cuts the
+    heads) the block holds nh / k local heads: qkv is column-parallel, proj
+    row-parallel, and the attention is A′, global and windowed blocks
+    alike."""
+
+    model_group = None
 
     def __init__(self, dim: int, num_heads: int, rel_pos_size: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.compute_dtype = dtype
-        hd = dim // num_heads
+        self.head_dim = hd = dim // num_heads
         self.qkv = Linear(dim, 3 * dim, dtype=dtype)
         self.proj = Linear(dim, dim, dtype=dtype)
         self.rel_pos_h = nn.Parameter(torch.empty(2 * rel_pos_size - 1, hd))
@@ -471,8 +506,8 @@ class Attention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, H, W, C = x.shape
-        nh = self.num_heads
-        hd = C // nh
+        nh, hd = self.num_heads, self.head_dim
+        x = copy_to_model(x, self.model_group)
         qkv = self.qkv(x).reshape(B, H * W, 3, nh, hd)
         q, k, v = qkv.unbind(2)
         ar_h = torch.arange(H, device=x.device)
@@ -481,20 +516,26 @@ class Attention(nn.Module):
         idx_w = ar_w[:, None] - ar_w[None, :] + W - 1
         Rh = interp_rel_pos(self.rel_pos_h, H)[idx_h].to(self.compute_dtype)
         Rw = interp_rel_pos(self.rel_pos_w, W)[idx_w].to(self.compute_dtype)
-        out = flash_rel_pos_attention(q.reshape(B, H, W, nh, hd), k, v,
-                                      Rh.contiguous(), Rw.contiguous(),
-                                      1.0 / math.sqrt(hd))
+        attend = (flash_rel_pos_attention if self.model_group is None
+                  else flash_rel_pos_attention_tp)
+        out = attend(q.reshape(B, H, W, nh, hd), k, v, Rh.contiguous(),
+                     Rw.contiguous(), 1.0 / math.sqrt(hd))
         return self.proj(out)
 
 
 class _Mlp(nn.Module):
+    """fc1 is column-parallel and fc2 row-parallel under tensor
+    parallelism."""
+
+    model_group = None
+
     def __init__(self, dim: int, dtype: torch.dtype):
         super().__init__()
         self.fc1 = Linear(dim, 4 * dim, dtype=dtype)
         self.fc2 = Linear(4 * dim, dim, dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return self.fc2(F.gelu(self.fc1(copy_to_model(x, self.model_group))))
 
 
 class Block(nn.Module):
@@ -588,18 +629,19 @@ class ViT(nn.Module):
             self.pos_embed.normal_(0.0, 0.02, generator=generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, mesh=None
                 ) -> Dict[str, torch.Tensor]:
-        """`train` turns on stochastic depth (masks from `generator`) and,
-        with `use_checkpoint` and autograd on, per-block activation
-        checkpointing (the reference's MODEL.VIT.USE_CHECKPOINT)."""
+        """`train` turns on stochastic depth (masks from `generator`, this
+        rank's rows of the whole batch's under a `mesh`) and, with
+        `use_checkpoint` and autograd on, per-block activation checkpointing
+        (the reference's MODEL.VIT.USE_CHECKPOINT)."""
         dt = self.compute_dtype
         x = self.patch_embed(x.to(dt))
         B, H, W, C = x.shape
         x = x + interp_abs_pos(self.pos_embed, H, W).to(dt)
         remat = train and self.use_checkpoint and torch.is_grad_enabled()
         for blk, rate in zip(self.blocks, self.drop_path_rates):
-            drop = (drop_path_masks(B, rate, generator, x.device)
+            drop = (drop_path_masks(B, rate, generator, x.device, mesh)
                     if train and rate > 0 else None)
             x = checkpointed(blk, x, drop) if remat else blk(x, drop)
         up = self.fpn1[0]

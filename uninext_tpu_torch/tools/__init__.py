@@ -10,8 +10,10 @@ Each runs on the card by default:
 and `kernel_times`, which times the NMS kernel and fold B (see its
 docstring), `ap_check`, which trains `image_joint_r50` on the in-repo
 mini-COCO and reports its AP (`tools/real_ap_check.py --flagship`'s
-protocol), and `vis_check`, which trains a video config on the in-repo
-mini-YTVIS and reports its track mAP (`tools/real_vis_check.py`'s).
+protocol), `vis_check`, which trains a video config on the in-repo
+mini-YTVIS and reports its track mAP (`tools/real_vis_check.py`'s), and
+`multihost_smoke`, two ranks that take one data-parallel step together
+(`tools/multihost_smoke.py`'s).
 """
 import torch
 
