@@ -6,7 +6,9 @@ evaluation, the video family of `video_joint_r50` (VIS, MOT and MOTS
 serving, the two-frame training step and the video loop to a track mAP),
 its annotation-prompt family (SOT, VOS, R-VOS serving, the SOT training
 step, the ViT-H SOT/VOS frame step and the SOT loop to an AUC and a J&F),
-and the labs (`tools/`).
+data and tensor parallelism, the three-stage training recipe (BoxInst,
+the stage hand-off, the routed image and video stages), and the labs
+(`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -154,6 +156,23 @@ nonzero):
      "vith_tp_training" and "r50_dp_training"; peak memory per rank. Times
      are of ranks sharing one card over gloo: no speed of the parallel
      steps.
+  18. recipe (`uninext_tpu_torch/tools/pipeline_check.py`'s flow at full
+     width): 3 BoxInst steps of `image_joint_r50` (bs=2 at 800x1216, images
+     of flat colour patches, box bitmasks and the LAB colour similarity from
+     `data/boxinst.py`, warm-up 1: `loss_prj` and `loss_pairwise` positive
+     on step 2, every layer's two losses of step 2 equal to
+     `loss_masks_boxinst` on CPU copies of its inputs within 1e-4
+     relative), one instance-segmentation request of that model (NMS held
+     to its plain version); the state saved by `CheckpointManager` and
+     restored bit-equal by `restore_params` into an `image_joint_r50`
+     `Trainer`, a routed detection and grounding step; `load_stage_weights`
+     into a routed `Trainer(video=True)` of `video_joint_r50` (inflated,
+     template remapped, no mismatch, the template conv1 the image conv1
+     with a zero 4th channel) and its VIS-pair, then SOT-pair step (ROADMAP
+     §3.23). Launches per step asserted (MSDA 18, MSDA-bwd 12; the VIS
+     pair 40, 22), as paths "recipe_boxinst", "recipe_image_joint" and
+     "recipe_video_joint"; MSDA and MSDA-bwd against their plain versions
+     at every shape the phase gave them.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -1618,21 +1637,22 @@ def _watch_frames(drv, counters, check):
     return log
 
 
-def _recording_nms():
-    """A pass-through in front of the frame step's NMS
-    (`engine/video_inference.py` calls `batched_nms` by that name) that
-    keeps each call's inputs. Returns the records and a function that takes
-    the pass-through out again."""
-    from uninext_tpu_torch.engine import video_inference
-    real, seen = video_inference.batched_nms, []
+def _recording_nms(module=None):
+    """A pass-through in front of the NMS of `module` (which calls
+    `batched_nms` by that name; by default the frame step's,
+    `engine/video_inference.py`) that keeps each call's inputs. Returns the
+    records and a function that takes the pass-through out again."""
+    if module is None:
+        from uninext_tpu_torch.engine import video_inference as module
+    real, seen = module.batched_nms, []
 
     def recording(boxes, scores, classes, thr, valid=None):
         seen.append((boxes.clone(), scores.clone(), classes.clone(), thr,
                      None if valid is None else valid.clone()))
         return real(boxes, scores, classes, thr, valid=valid)
 
-    video_inference.batched_nms = recording
-    return seen, lambda: setattr(video_inference, "batched_nms", real)
+    module.batched_nms = recording
+    return seen, lambda: setattr(module, "batched_nms", real)
 
 
 def _check_nms_calls(calls, label):
@@ -2925,6 +2945,399 @@ def phase_parallel(vit_h, r50):
     return rec, launches
 
 
+# ---- the training recipe: BoxInst, the stage hand-off, the routed stages ------
+
+RECIPE_BOXINST_STEPS = 3
+
+
+def _patch_images(B, Hh, Ww, seed):
+    """(B, Hh, Ww, 3) in [0, 255]: flat colour patches of 32 to 160 pixels and
+    a little noise, so that most neighbours pass BoxInst's 0.3 similarity
+    threshold (on random pixels almost none does)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    img = np.zeros((B, Hh, Ww, 3), np.float32)
+    for b in range(B):
+        y = 0
+        while y < Hh:
+            dy = rng.randint(32, 161)
+            x = 0
+            while x < Ww:
+                dx = rng.randint(32, 161)
+                img[b, y:y + dy, x:x + dx] = rng.uniform(0, 255, 3)
+                x += dx
+            y += dy
+    return np.clip(img + rng.randn(*img.shape) * 1.0, 0, 255).astype(np.float32)
+
+
+def _boxinst_batch(cfg, dev):
+    """`_train_batch` (bs=2 at 800x1216, image 1 valid on 800x1088) with
+    BoxInst's targets and no gt masks: images of flat colour patches
+    (normalised, zero on the padding), each image's colour similarity from
+    `data/boxinst.py:color_similarity` (the bottom rows of its valid area
+    cleared as the mapper clears them) and the box bitmasks of its boxes
+    from `boxes_to_bitmasks`."""
+    import numpy as np
+    import torch
+    from uninext_tpu_torch.data.boxinst import boxes_to_bitmasks, color_similarity
+    b = _train_batch(cfg, dev)
+    B, (Hh, Ww) = TRAIN_BATCH, IMAGE_HW
+    raw = _patch_images(B, Hh, Ww, seed=21)
+    mean, std = np.array(cfg.data.pixel_mean, np.float32), np.array(cfg.data.pixel_std,
+                                                                     np.float32)
+    sizes = b["image_sizes"].cpu().numpy()
+    boxes = b["targets"]["boxes"].cpu().numpy()
+    valid = b["targets"]["valid"].cpu().numpy()
+    images, sims, bits = (raw - mean) / std, [], []
+    pr = cfg.loss.boxinst_bottom_pixels_removed
+    for i, (h, w) in enumerate(sizes):
+        images[i, :, w:] = 0
+        raw[i, :, w:] = mean
+        vm = np.zeros((Hh, Ww), np.float32)
+        vm[:h - pr, :w] = 1.0
+        sims.append(color_similarity(raw[i], vm))
+        xyxy = np.concatenate([boxes[i, :, :2] - boxes[i, :, 2:] / 2,
+                               boxes[i, :, :2] + boxes[i, :, 2:] / 2], -1) * [w, h, w, h]
+        bits.append(boxes_to_bitmasks(xyxy, valid[i], Hh, Ww))
+    b["images"] = torch.from_numpy(images).to(dev)
+    b["targets"].update(has_masks=True, box_bitmasks=torch.from_numpy(np.stack(bits)).to(dev),
+                        color_similarity=torch.from_numpy(np.stack(sims)).to(dev))
+    return b
+
+
+def _recording_boxinst():
+    """A pass-through in front of `models/criterion.py:loss_masks_boxinst`
+    (`models/detr.py` calls it through the module) that, while `on[0]`,
+    keeps each call's inputs and losses on the card. Returns the records,
+    the switch and a function that takes the pass-through out again."""
+    from uninext_tpu_torch.models import criterion
+    real, seen, on = criterion.loss_masks_boxinst, [], [False]
+
+    def recording(*args):
+        out = real(*args)
+        if on[0]:
+            seen.append(([a.detach().clone() if hasattr(a, "detach") else a for a in args],
+                         {k: v.detach() for k, v in out.items()}))
+        return out
+
+    criterion.loss_masks_boxinst = recording
+    return seen, on, lambda: setattr(criterion, "loss_masks_boxinst", real)
+
+
+def _nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def _numpy_batch(batch, task):
+    """A batch of tensors as the loader's numpy batch, routed to `task`."""
+    def host(x):
+        if isinstance(x, dict):
+            return {k: host(v) for k, v in x.items() if k != "has_masks"}
+        return x.cpu().numpy()
+    return {**host(batch), "__task__": task}
+
+
+class _LaunchLog:
+    """A trainer hook: each micro-step's kernel launches."""
+
+    def __init__(self, counters):
+        self.counters, self.per_step, self.ms = counters, [], []
+
+    def before_train(self, trainer):
+        pass
+
+    def after_train(self, trainer):
+        pass
+
+    def before_step(self, trainer):
+        self.before = {k: c.launches for k, c in self.counters.items()}
+
+    def after_step(self, trainer, metrics):
+        self.per_step.append({k: c.launches - self.before[k]
+                              for k, c in self.counters.items()})
+        self.ms.append(float(metrics["time"]) * 1e3)
+        bad = [k for k, v in metrics.items() if not math.isfinite(float(v))]
+        if bad:
+            raise AssertionError(f"recipe: non-finite {bad} at micro-step "
+                                 f"{trainer.state.step}")
+
+
+def phase_recipe(dev=None):
+    """UNINEXT's three-stage training recipe at full width, one stage after
+    the other (`uninext_tpu_torch/tools/pipeline_check.py`'s flow at the
+    slice's sizes):
+      a. BoxInst: `image_joint_r50` with `loss.boxinst` (warm-up 1, so the
+         pairwise term is at full weight from the second step),
+         RECIPE_BOXINST_STEPS steps of `train_step` on `_boxinst_batch`;
+         every loss finite, `loss_prj` and `loss_pairwise` above 0 on step
+         2, the card's two losses of every layer of step 2 equal to
+         `loss_masks_boxinst` on CPU copies of that step's mask logits and
+         targets (1e-4 relative); then one instance-segmentation request of
+         the trained model (MSDA 12, NMS 1), NMS held to its plain version
+         on its input;
+      b. the hand-off: the BoxInst state saved by `CheckpointManager`, a
+         `Trainer` of `image_joint_r50` (other weights) restored from the
+         file by `restore_params` (bit-equal to the BoxInst model), then a
+         routed detection step and a grounding step;
+      c. `video_joint_r50` with the template branch: a `Trainer(video=True)`
+         on a routed loader whose first batch is a VIS pair and second a
+         SOT pair (ROADMAP §3.23), its weights from stage b's by
+         `load_stage_weights` (inflated >= 1, remapped template > 0, no
+         mismatch; the template conv1's 4th input channel zero, its first
+         three the image conv1), two steps.
+    Launches per step asserted (BoxInst, detection, grounding, SOT: MSDA 18,
+    MSDA-bwd 12; VIS: 40, 22), as paths "recipe_boxinst", "recipe_image_joint"
+    and "recipe_video_joint"; then MSDA and MSDA-bwd against their plain
+    versions at every shape the phase gave them. Returns (launches by path,
+    MSDA checks, NMS check)."""
+    import dataclasses
+    import tempfile
+    import torch
+    from uninext_tpu_torch.config import image_joint_r50, video_joint_r50
+    from uninext_tpu_torch.data.tokenizer import BertTokenizer
+    from uninext_tpu_torch.engine.checkpoint import (BACKBONE, TEMPLATE_BACKBONE,
+                                                     CheckpointManager, load_stage_weights)
+    from uninext_tpu_torch.engine.train import build_train_state, train_step
+    from uninext_tpu_torch.engine.trainer import Trainer
+    from uninext_tpu_torch.models import criterion
+    from uninext_tpu_torch.models import postprocess
+    from uninext_tpu_torch.models.postprocess import postprocess_detection, take_queries
+    from uninext_tpu_torch.ops import nms
+    dev = dev or torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = _counters()
+    base = image_joint_r50()
+    cfg1 = dataclasses.replace(base, loss=dataclasses.replace(
+        base.loss, boxinst=True, boxinst_warmup_iters=1))
+    t = cfg1.transformer
+    n_remat = t.enc_layers if cfg1.remat_encoder else 0
+    step_expect = {**dict.fromkeys(counters, 0),
+                   "ms_deform_attn_fwd": t.enc_layers + t.dec_layers + n_remat,
+                   "ms_deform_attn_bwd": t.enc_layers + t.dec_layers}
+    launches = {}
+    msda_calls, unrecord_msda = _recording_msda()
+
+    # a. BoxInst
+    state = build_train_state(cfg1, dev, seed=0)
+    batch = _boxinst_batch(cfg1, dev)
+    tg = batch["targets"]
+    n_pass = float((tg["color_similarity"] >= cfg1.loss.boxinst_pairwise_color_thresh)
+                   .float().mean())
+    N = cfg1.mask_head.max_insts
+    h4, w4 = IMAGE_HW[0] // 4, IMAGE_HW[1] // 4
+    print(f"[recipe] a. BoxInst on image_joint_r50, bs={TRAIN_BATCH} at {IMAGE_HW[0]}x"
+          f"{IMAGE_HW[1]} (image 1 valid on "
+          f"{'x'.join(map(str, batch['image_sizes'][1].tolist()))}), gt boxes "
+          f"{tg['valid'].sum(1).tolist()}, no gt masks: box bitmasks "
+          f"{tuple(tg['box_bitmasks'].shape)}, colour similarity "
+          f"{tuple(tg['color_similarity'].shape)} ({100 * n_pass:.1f}% of the neighbours at "
+          f"or above {cfg1.loss.boxinst_pairwise_color_thresh}); warm-up "
+          f"{cfg1.loss.boxinst_warmup_iters}; one pairwise tensor (B, N={N}, 8, {h4}, {w4}) "
+          f"in fp32 would be {TRAIN_BATCH * N * 8 * h4 * w4 * 4 / 1e6:.0f} MB, the port "
+          f"takes the term one neighbour at a time under checkpointing")
+    records, recording_on, unrecord_boxinst = _recording_boxinst()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics, per_step = [], [], []
+    for i in range(RECIPE_BOXINST_STEPS):
+        recording_on[0] = i == 1
+        before = {k: c.launches for k, c in counters.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = train_step(state, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: c.launches - before[k] for k, c in counters.items()})
+        metrics.append({k: float(v) for k, v in m.items()})
+    recording_on[0] = False
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    # one instance-segmentation request of the trained model
+    nms_calls, unrecord_nms = _recording_nms(postprocess)
+    _, _, cmap = _prompt(cfg1)
+    cmap = torch.from_numpy(cmap).to(dev)
+    before = {k: c.launches for k, c in counters.items()}
+    model = state.model.eval()
+    with torch.inference_mode():
+        sl = slice(0, 1)
+        out = model(batch["images"][sl], batch["img_mask"][sl], batch["image_sizes"][sl],
+                    batch["text_ids"][sl], batch["text_mask"][sl], task="detection")
+        post = postprocess_detection(out, cmap, use_nms=cfg1.loss.ota)
+        idx = post["query_idx"]
+        masks = model.predict_masks(out["memory"], out["spatial_shapes"],
+                                    take_queries(out["hs"], idx),
+                                    take_queries(out["base_reference"], idx),
+                                    batch["image_sizes"][sl])
+    torch.cuda.synchronize()
+    eval_launches = {k: c.launches - before[k] for k, c in counters.items()}
+    unrecord_nms()
+    launches["recipe_boxinst"] = {k: c.launches for k, c in counters.items()}
+    unrecord_boxinst()
+    for i, m in enumerate(metrics):
+        print(f"[recipe] BoxInst step {i + 1}: total_loss {m['total_loss']:.6g}, "
+              f"{step_ms[i]:.1f} ms; loss_prj {m['loss_prj']:.6g}, loss_pairwise "
+              f"{m['loss_pairwise']:.6g} (layer 0: {m['loss_prj_0']:.6g}, "
+              f"{m['loss_pairwise_0']:.6g})")
+    print(f"[recipe] BoxInst step ms (host clock, synchronised): "
+          + ", ".join(f"{x:.1f}" for x in step_ms)
+          + f"; peak device memory {peak_a:.2f} GiB (max_memory_allocated); launches per "
+          f"step {_nonzero(per_step[0])}; expected {_nonzero(step_expect)}")
+    for i, m in enumerate(metrics):
+        bad = [k for k, v in m.items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"BoxInst step {i + 1}: non-finite {bad}")
+        if any(k.startswith(("loss_mask", "loss_dice")) for k in m):
+            raise AssertionError(f"BoxInst step {i + 1}: gt-mask losses {sorted(m)}")
+    if metrics[0]["loss_pairwise"] != 0.0:
+        raise AssertionError(f"BoxInst step 1 (warm-up factor 0): loss_pairwise "
+                             f"{metrics[0]['loss_pairwise']}")
+    if not (metrics[1]["loss_prj"] > 0 and metrics[1]["loss_pairwise"] > 0):
+        raise AssertionError(f"BoxInst step 2: loss_prj {metrics[1]['loss_prj']}, "
+                             f"loss_pairwise {metrics[1]['loss_pairwise']}")
+    for counts in per_step:
+        _check_launches("BoxInst step", counts, step_expect)
+    eval_expect = {**dict.fromkeys(counters, 0),
+                   "ms_deform_attn_fwd": t.enc_layers + t.dec_layers, "nms": 1}
+    _check_launches("BoxInst instance-segmentation request", eval_launches, eval_expect)
+    if masks.shape != (1, idx.shape[1], h4, w4) or not torch.isfinite(masks).all():
+        raise AssertionError(f"BoxInst request: masks {tuple(masks.shape)}")
+    # the card's BoxInst losses against the same function on CPU copies
+    if len(records) != t.dec_layers:
+        raise AssertionError(f"{len(records)} BoxInst loss calls in step 2, not "
+                             f"{t.dec_layers}")
+    loss_err = 0.0
+    for args, got in records:
+        cpu = [a.cpu() if hasattr(a, "cpu") else a for a in args]
+        want = criterion.loss_masks_boxinst(*cpu)
+        for k, v in want.items():
+            err = abs(float(got[k]) - float(v)) / max(abs(float(v)), 1e-12)
+            loss_err = max(loss_err, err)
+            if not err <= 1e-4:
+                raise AssertionError(f"BoxInst {k}: card {float(got[k])} vs CPU {float(v)}")
+    print(f"[recipe] BoxInst losses of step 2 on the card equal loss_masks_boxinst on CPU "
+          f"copies of the step's mask logits {tuple(records[0][0][0].shape)} and targets, "
+          f"all {len(records)} layers, within {loss_err:.3g} relative (tolerance 1e-4)")
+    kept = []
+    for boxes, scores, classes, thr, valid in nms_calls:
+        half = (scores > scores.median()).contiguous()
+        for v in (valid, half):
+            got = nms.batched_nms(boxes, scores, classes, thr, valid=v)
+            if not torch.equal(got, nms.batched_nms_plain(boxes, scores, classes, thr,
+                                                          valid=v)):
+                raise AssertionError("BoxInst request: NMS keep mask differs from the "
+                                     "plain version")
+            kept.append(int(got.sum()))
+    print(f"[recipe] instance segmentation request of the BoxInst model: masks "
+          f"{tuple(masks.shape)}, launches {_nonzero(eval_launches)}; NMS keep masks identical to the "
+          f"plain version's at its {len(nms_calls)} input(s), kept {kept} (as given; with "
+          f"the upper half of the scores valid)")
+    del out, post, masks
+
+    # b. the hand-off into the image joint stage
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
+        ckpt_dir = os.path.join(root, "stage1")
+        t0 = time.perf_counter()
+        CheckpointManager(ckpt_dir).save(state.step, state)
+        save_s = time.perf_counter() - t0
+        stage1 = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        del state, model
+        torch.cuda.empty_cache()
+        cfg2 = dataclasses.replace(base, solver=dataclasses.replace(
+            base.solver, max_iter=2, checkpoint_period=10 ** 9))
+        det = _train_batch(cfg2, dev)
+        tok = BertTokenizer()
+        T = det["text_ids"].shape[1]
+        expr = tok("the large red shape on the left of the picture", max_length=T)
+        grd = {**det, "text_ids": torch.from_numpy(expr["input_ids"]).long()[None]
+               .expand(TRAIN_BATCH, T).to(dev),
+               "text_mask": torch.from_numpy(expr["attention_mask"])[None]
+               .expand(TRAIN_BATCH, T).to(dev)}
+        routed = iter([_numpy_batch(det, "detection"), _numpy_batch(grd, "grounding"),
+                       _numpy_batch(det, "detection")])
+        log2 = _LaunchLog(counters)
+        tr2 = Trainer(cfg2, routed, output_dir=os.path.join(root, "stage2"), device=dev,
+                      seed=1, log_period=1, extra_hooks=[log2])
+        t0 = time.perf_counter()
+        _, found = CheckpointManager(ckpt_dir).restore_params(tr2.model)
+        restore_s = time.perf_counter() - t0
+        diff = [k for k, v in tr2.model.state_dict().items() if not torch.equal(v, stage1[k])]
+        if not found or diff:
+            raise AssertionError(f"restore_params: found {found}, differs at {diff[:5]}")
+        print(f"[recipe] b. BoxInst state saved in {save_s:.1f} s (step "
+              f"{CheckpointManager(ckpt_dir).latest_step()}), restored by restore_params "
+              f"into a Trainer of image_joint_r50 (other weights) in {restore_s:.1f} s: "
+              f"all {len(stage1)} tensors bit-equal")
+        del stage1
+        for c in counters.values():
+            c.launches = 0
+        tr2.train()
+        launches["recipe_image_joint"] = {k: c.launches for k, c in counters.items()}
+        print(f"[recipe] routed detection, then grounding step: "
+              f"{', '.join(f'{x:.1f}' for x in log2.ms)} ms (host clock to the end of each "
+              f"step's device work); launches per step "
+              f"{[_nonzero(c) for c in log2.per_step]}")
+        for counts in log2.per_step:
+            _check_launches("image joint step", counts, step_expect)
+        image = {k: v.detach().clone() for k, v in tr2.model.state_dict().items()}
+        del tr2, det, grd
+        torch.cuda.empty_cache()
+
+        # c. into video_joint_r50 with the template branch
+        vcfg = video_joint_r50()
+        vcfg = dataclasses.replace(vcfg, solver=dataclasses.replace(
+            vcfg.solver, max_iter=2, checkpoint_period=10 ** 9))
+        pair = _video_train_batch(vcfg, dev)
+        routed = iter([_numpy_batch(pair, "detection"), _numpy_batch(pair, "sot"),
+                       _numpy_batch(pair, "detection")])
+        log3 = _LaunchLog(counters)
+        tr3 = Trainer(vcfg, routed, output_dir=os.path.join(root, "stage3"), device=dev,
+                      seed=2, video=True, log_period=1, extra_hooks=[log3])
+        if not tr3.model.template:
+            raise AssertionError("a routed video Trainer built no template branch")
+        sd, rep = load_stage_weights(tr3.model.state_dict(), image)
+        tr3.model.load_state_dict(sd)
+        conv1 = tr3.model.state_dict()[TEMPLATE_BACKBONE + "stem.conv1.weight"]
+        print(f"[recipe] c. hand-off into video_joint_r50 with the template branch: loaded "
+              f"{rep['loaded']}, inflated {rep['inflated']}, template-remapped "
+              f"{rep['remapped_template']}, {len(rep['missing'])} left at init, "
+              f"{len(rep['mismatched'])} mismatched; template conv1 "
+              f"{tuple(conv1.shape)}")
+        if rep["inflated"] < 1 or rep["remapped_template"] <= 0 or rep["mismatched"]:
+            raise AssertionError(f"hand-off report {rep}")
+        if conv1[:, 3].any() or not torch.equal(conv1[:, :3],
+                                                image[BACKBONE + "stem.conv1.weight"]):
+            raise AssertionError("the template conv1 is not the image conv1 inflated")
+        del image, sd
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        tr3.train()
+        launches["recipe_video_joint"] = {k: c.launches for k, c in counters.items()}
+        peak_c = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_reid = vcfg.n_layer_deformable_reid
+        vt = vcfg.transformer
+        n_remat_v = vt.enc_layers if vcfg.remat_encoder else 0
+        vis_expect = {**dict.fromkeys(counters, 0),
+                      "ms_deform_attn_fwd": 2 * (vt.enc_layers + vt.dec_layers + n_reid
+                                                 + n_remat_v),
+                      "ms_deform_attn_bwd": 2 * vt.enc_layers + vt.dec_layers + 2 * n_reid
+                      + (0 if vcfg.detach_reid else vt.dec_layers)}
+        sot_expect = {**dict.fromkeys(counters, 0),
+                      "ms_deform_attn_fwd": vt.enc_layers + vt.dec_layers + n_remat_v,
+                      "ms_deform_attn_bwd": vt.enc_layers + vt.dec_layers}
+        print(f"[recipe] routed VIS pair, then SOT pair step: "
+              f"{', '.join(f'{x:.1f}' for x in log3.ms)} ms; peak device memory "
+              f"{peak_c:.2f} GiB; launches per step {[_nonzero(c) for c in log3.per_step]}")
+        _check_launches("VIS pair step", log3.per_step[0], vis_expect)
+        _check_launches("SOT pair step", log3.per_step[1], sot_expect)
+        del tr3, pair
+    unrecord_msda()
+    torch.cuda.empty_cache()
+    checks = _check_msda_calls(msda_calls, label="recipe")
+    print(f"[recipe] done in {time.perf_counter() - t_phase:.1f} s")
+    return launches, checks, {"recipe_nms_inputs": len(nms_calls)}
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -3048,6 +3461,10 @@ def main():
     sot_loop, sot_loop_checks = phase_sot_loop()
     rec["ms_deform_attn_fwd"].update(sot_rec)
     rec["rel_pos_flash_attn_tp"], parallel = phase_parallel(vit_h, r50)
+    recipe, recipe_checks, recipe_nms = phase_recipe()
+    rec["nms"].update(recipe_nms)
+    for name, r in recipe_checks.items():
+        rec[name].update({f"recipe_{k}": v for k, v in r.items()})
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
     a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in vith_rec.items()
@@ -3070,6 +3487,7 @@ def main():
                    "sot_training": sot_training[name], "sot_vith": sot_vith[name],
                    "sot_loop": sot_loop[name],
                    **{path: n[name] for path, n in parallel.items()},
+                   **{path: n[name] for path, n in recipe.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -3090,7 +3508,8 @@ def main():
                            if k in r},
                         **{k: v for k, v in r.items()
                            if k.startswith(("vis_", "mot_", "video_", "sot_", "vos_",
-                                            "rvos_", "k2_", "k4_", "launches_per_rank",
+                                            "rvos_", "recipe_", "k2_", "k4_",
+                                            "launches_per_rank",
                                             "peak_gib_per_rank", "step_rel_err", "nccl_"))}})
         k = kernels[-1]
         if "kernel_ms" in k:

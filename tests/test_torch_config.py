@@ -93,3 +93,49 @@ def test_sot_fixture_config_matches_the_jax_tool(flagship):
     finally:
         sys.path.remove(tools)
     assert dataclasses.asdict(sot_check.build_cfg(800)) == dataclasses.asdict(want)
+
+
+@pytest.mark.parametrize("tool", ["rec_check", "pipeline_check", "joint_check"])
+def test_recipe_fixture_configs_match_the_jax_tools(tool):
+    """The configs of the recipe's fixture tools against the JAX tools':
+    `tools/rec_check.py:build_cfg` is `tools/real_rec_check.py:build_cfg`;
+    `tools/pipeline_check.py:configs` are `tools/pipeline3_check.py`'s three
+    stages (`build_tiny_cfg` and their replacements: BoxInst with its
+    warm-up, the template backbone and the fuser); `tools/joint_check.py:
+    build_cfg` is `tools/real_joint_check.py`'s `build_tiny_cfg(steps,
+    frame_range=7, use_reid=True)`. `tools/evidence.py:build_tiny_cfg` is
+    `tools/_evidence_common.py`'s at each use."""
+    import importlib.util
+    import os
+    import sys
+    from uninext_tpu_torch.tools import evidence, joint_check, pipeline_check, rec_check
+    tools = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                         "tools")
+    sys.path.insert(0, tools)
+    try:
+        from _evidence_common import build_tiny_cfg
+        if tool == "rec_check":
+            spec = importlib.util.spec_from_file_location(
+                "real_rec_check", os.path.join(tools, "real_rec_check.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            pairs = [(rec_check.build_cfg(1000), mod.build_cfg(1000))]
+        elif tool == "pipeline_check":
+            want1 = build_tiny_cfg(1200, min_size=224, max_size=352)
+            want1 = dataclasses.replace(want1, loss=dataclasses.replace(
+                want1.loss, boxinst=True, boxinst_warmup_iters=max(1200 // 6, 20)))
+            want3 = build_tiny_cfg(600, frame_range=7, use_reid=True)
+            want3 = dataclasses.replace(want3, sot=dataclasses.replace(
+                want3.sot, extra_backbone_for_template=True, feature_fusion=True))
+            wants = (want1, build_tiny_cfg(400, min_size=224, max_size=352), want3)
+            pairs = list(zip(pipeline_check.configs(1200, 400, 600), wants))
+            assert pairs[0][0].loss.boxinst_warmup_iters == 200
+        else:
+            pairs = [(joint_check.build_cfg(2500),
+                      build_tiny_cfg(2500, frame_range=7, use_reid=True))]
+        pairs += [(evidence.build_tiny_cfg(30, 224, 352, 3, True),
+                   build_tiny_cfg(30, 224, 352, 3, True))]
+    finally:
+        sys.path.remove(tools)
+    for got, want in pairs:
+        assert dataclasses.asdict(got) == dataclasses.asdict(want)

@@ -183,10 +183,12 @@ def test_grounding_step_matches_jax(pair, monkeypatch):
 
 
 def test_boxinst_is_refused(pair):
+    """BoxInst's losses (`tests/test_torch_boxinst.py`) are refused on a
+    batch without BoxInst's targets (gt masks only)."""
     cfg, _, _, model, inputs, targets = pair
     model.cfg = dataclasses.replace(cfg, loss=dataclasses.replace(cfg.loss, boxinst=True))
     try:
-        with pytest.raises(NotImplementedError, match="BoxInst"):
+        with pytest.raises(ValueError, match="BoxInst"):
             loss_and_grads(model, _batch(inputs, targets, _mask_targets(targets[1])),
                            loss_weights(cfg))
     finally:

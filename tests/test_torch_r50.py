@@ -4,14 +4,15 @@ transformer layers of width 64, 60 queries) at 64x96 (level shapes
 divisible by 32, where the JAX callers' `feature_shapes` are the real
 ones): detection with `postprocess_detection`, the instance masks of the
 top 100, the REC/RES top-1 box and mask, the weight bridge's round trip
-with the mask head, the optimizer groups, and one train step through
-AdamW.
+with the mask head, the optimizer groups, one train step through AdamW, and
+one BoxInst step's losses and gradients.
 
 One JAX tree for the file, initialised through the training path with
 mask targets and perturbed by 0.02 (the 0.05 of the ViT slice would grow
 the R50 trunk's activations by 1e5; tests/test_torch_resnet.py).
 """
 import copy
+import dataclasses
 import re
 
 import jax
@@ -20,8 +21,9 @@ import optax
 import pytest
 import torch
 
-from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
-                                     dn_noise, jax_loss_and_grads, jax_train_init, perturb)
+from tests.torch_port_common import (bridge_sources, boxinst_targets, detection_inputs,
+                                     detection_targets, dn_noise, jax_loss_and_grads,
+                                     jax_train_init, perturb)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
@@ -317,3 +319,50 @@ def test_r50_train_step_matches_jax(pair, monkeypatch):
                                    err_msg=name)
         np.testing.assert_array_less(np.abs(got - want), 2 * lr[group] + 1e-6,
                                      err_msg=name)
+
+
+def test_r50_boxinst_train_step_matches_jax(pair, monkeypatch):
+    """The step above with `loss.boxinst`, past the pairwise term's warm-up,
+    on the same weights, inputs and boxes: every loss (`loss_prj` and
+    `loss_pairwise` of every decoder layer in place of the mask and dice
+    losses) and every gradient, the R50 trunk's included, against
+    `jax.value_and_grad`, at the step's tolerances."""
+    base, inputs, targets, _, params, _ = pair
+    cfg = dataclasses.replace(base, loss=dataclasses.replace(
+        base.loss, boxinst=True, boxinst_warmup_iters=4))
+    model = build_model(cfg, "cpu", seed=0).train()
+    convert.load_jax_params(model, params)
+    extra = boxinst_targets(8, inputs, targets, step=6)
+    total, jlosses, jgrads = jax_loss_and_grads(JaxDETR(cfg), params, inputs, targets, cfg,
+                                                monkeypatch, DN_KEY, boxinst=extra)
+    batch = {"images": _t(inputs[0]), "img_mask": _t(inputs[1]),
+             "image_sizes": _t(inputs[2]), "text_ids": _t(inputs[3]).long(),
+             "text_mask": _t(inputs[4]),
+             "targets": {"boxes": _t(targets[0]), "valid": _t(targets[1]),
+                         "positive_map": _t(targets[2]), "has_masks": True,
+                         "box_bitmasks": _t(extra["box_bitmasks"]),
+                         "color_similarity": _t(extra["color_similarity"]), "step": 6}}
+    single_pad = min(detr.DN_SINGLE_PAD, cfg.data.max_insts)
+    got_total, losses = loss_and_grads(model, batch, loss_weights(cfg),
+                                       dn_noise=dn_noise(DN_KEY, 2, single_pad))
+    assert set(losses) == set(jlosses) and {"loss_prj", "loss_pairwise_0"} <= set(losses)
+    assert not any(k.startswith(("loss_mask", "loss_dice")) for k in losses)
+    for k in losses:
+        np.testing.assert_allclose(losses[k].detach().numpy(), np.asarray(jlosses[k]),
+                                   rtol=2e-5, atol=1e-6, err_msg=k)
+    assert float(losses["loss_pairwise"].detach()) > 0 and float(losses["loss_prj"].detach()) > 0
+    np.testing.assert_allclose(got_total.detach().numpy(), np.asarray(total), rtol=2e-5)
+    zeros = jax.tree.map(np.zeros_like, {"params": params["params"]})
+    tree, report = convert_checkpoint(
+        {k: p.grad if p.grad is not None else torch.zeros_like(p)
+         for k, p in model.named_parameters()}, copy.deepcopy(zeros))
+    assert report["missing_target"] == [] and report["unused_source"] == []
+    grads = dict(jax.tree_util.tree_leaves_with_path(tree["params"]))
+    held = 0
+    for path, want in jax.tree_util.tree_leaves_with_path(jgrads):
+        name = jax.tree_util.keystr(path)
+        want = np.asarray(want)
+        scale = max(float(np.abs(want).max()), 1e-2)
+        np.testing.assert_allclose(grads[path], want, rtol=0, atol=2e-4 * scale, err_msg=name)
+        held += name.startswith(("['mask_head']", "['controller']")) and np.abs(want).max() > 0
+    assert held > 0                      # the mask losses reach the mask head

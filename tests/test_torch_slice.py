@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from tests.torch_port_common import (detection_inputs, detection_targets,
-                                     jax_train_init, perturb, tiny_vit_config)
+                                     jax_train_init, one_torch_thread, perturb,
+                                     tiny_vit_config)
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
 from uninext_tpu.models.postprocess import postprocess_detection as jax_post
@@ -103,7 +104,8 @@ def test_port_runs_without_jax():
     fixture tool's loop) and SOT (a template encode and a SOT frame through
     `SOTDriver`, a SOT train step), the C++ COCO matcher (built in the
     child if no earlier run left it), and the parallel layer (one train step
-    on a mesh of one rank), at a tiny size,
+    on a mesh of one rank), at a tiny size, and importing the training
+    recipe's modules (BoxInst's targets, the recipe's three fixture tools),
     leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
     without them."""
@@ -272,6 +274,11 @@ def test_port_runs_without_jax():
             "targets": targets}, mesh))
         assert torch.isfinite(metrics["total_loss"]) and state.mesh is mesh
         dist.destroy_process_group()
+        # the training recipe's modules (their 2-step runs are tests below)
+        import uninext_tpu_torch.data.boxinst
+        import uninext_tpu_torch.tools.joint_check
+        import uninext_tpu_torch.tools.pipeline_check
+        import uninext_tpu_torch.tools.rec_check
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"))
         print("JAX_MODULES", bad)
@@ -285,3 +292,50 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
+
+
+# ---- the training recipe's fixture tools at a tiny size ---------------------------
+# The loader seeds are picked so that every routed task takes a step in two
+# or three steps (the tools refuse a run that did not route each task).
+
+@pytest.mark.usefixtures(one_torch_thread.__name__)
+def test_rec_check_tool_runs(tmp_path):
+    from uninext_tpu_torch.tools import rec_check
+    res = rec_check.main(["--steps", "2", "--n-train", "2", "--n-val", "1", "--device", "cpu",
+                          "--out", str(tmp_path / "rec.json")])
+    seed = res["per_seed"][0]
+    assert seed["step_ms"]["steps"] == 2
+    assert all(seed[k] is not None for k in ("rec_p_at_50", "rec_oiou", "res_mask_p_at_50",
+                                              "res_mask_miou", "res_mask_oiou"))
+
+
+@pytest.mark.usefixtures(one_torch_thread.__name__)
+def test_pipeline_check_tool_runs(tmp_path):
+    """Stage 1 (BoxInst) saves, stage 2 restores and routes detection and
+    grounding, stage 3 takes the hand-off and routes a VIS pair, then a SOT
+    pair."""
+    from uninext_tpu_torch.tools import pipeline_check
+    res = pipeline_check.main(["--steps1", "2", "--steps2", "2", "--steps3", "2",
+                               "--n-train", "2", "--n-val", "1", "--first-seed", "13",
+                               "--device", "cpu", "--out", str(tmp_path / "pipe.json")])
+    s1, s2, s3 = (res["per_seed"][0][k] for k in ("1_pretrain", "2_image_joint",
+                                                   "3_video_joint"))
+    assert s1["steps"] == s2["steps"] == s3["steps"] == 2
+    assert s1["mask_ap_vs_real_gt_masks"] is not None and s2["det_ap"] is not None
+    assert set(s2["batches_read_per_task"]) == {"detection", "grounding"}
+    assert set(s3["batches_read_per_task"]) == {"detection", "sot"}
+    h = s3["handoff"]
+    assert h["inflated"] == 1 and h["remapped_template"] > 0 and not h["mismatched"]
+
+
+@pytest.mark.usefixtures(one_torch_thread.__name__)
+def test_joint_check_tool_runs(tmp_path):
+    from uninext_tpu_torch.tools import joint_check
+    res = joint_check.main(["--steps", "3", "--n-train", "2", "--n-val", "1",
+                            "--first-seed", "13", "--device", "cpu",
+                            "--out", str(tmp_path / "joint.json")])
+    seed = res["per_seed"][0]
+    assert set(seed["batches_read_per_task"]) == {"detection", "grounding", "sot"}
+    assert all(seed[k] is not None for k in (
+        "joint_vis_map", "joint_mot_mota", "joint_mot_idf1", "joint_sot_auc",
+        "joint_vos_jf", "joint_rvos_jf"))

@@ -118,6 +118,45 @@ def detection_targets(seed=0, B=2, G=20, T=16, n=(3, 8)):
     return boxes, valid, pm
 
 
+def patch_image(rng, H, W, noise=1.0):
+    """(H, W, 3) in [0, 255]: flat colour patches of 16 to 40 pixels and a
+    little noise, so that most of BoxInst's neighbours pass its 0.3 colour
+    similarity threshold."""
+    img = np.zeros((H, W, 3), np.float32)
+    y = 0
+    while y < H:
+        dy = rng.randint(16, 41)
+        x = 0
+        while x < W:
+            dx = rng.randint(16, 41)
+            img[y:y + dy, x:x + dx] = rng.uniform(0, 255, 3)
+            x += dx
+        y += dy
+    return np.clip(img + rng.randn(H, W, 3) * noise, 0, 255).astype(np.float32)
+
+
+def boxinst_targets(seed, inputs, targets, step):
+    """BoxInst's targets for `detection_inputs` and `detection_targets`:
+    each valid box (cxcywh over its image's size) as a bitmask at the padded
+    size, and the colour similarity of seeded patch images on each image's
+    valid area. Returns {box_bitmasks, color_similarity, step} as numpy."""
+    from uninext_tpu_torch.data import boxinst
+
+    rng = np.random.RandomState(seed)
+    B, H, W = inputs[0].shape[:3]
+    sim = np.stack([boxinst.color_similarity(patch_image(rng, H, W),
+                                             (~inputs[1][b]).astype(np.float32))
+                    for b in range(B)])
+    boxes, valid = targets[0], targets[1]
+    bits = []
+    for b in range(B):
+        h, w = inputs[2][b]
+        xyxy = np.concatenate([boxes[b, :, :2] - boxes[b, :, 2:] / 2,
+                               boxes[b, :, :2] + boxes[b, :, 2:] / 2], -1) * [w, h, w, h]
+        bits.append(boxinst.boxes_to_bitmasks(xyxy, valid[b], H, W))
+    return {"box_bitmasks": np.stack(bits), "color_similarity": sim, "step": np.int32(step)}
+
+
 def jax_train_init(jax_model, inputs, targets, seed=0):
     """Parameters of the JAX model initialised through its training path
     with mask targets (zeros), so the DN label encoder `dn_resizer` and the
@@ -152,11 +191,12 @@ def dn_noise(key, B, single_pad, groups=5):
 
 
 def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key,
-                       task="detection", masks=None):
+                       task="detection", masks=None, boxinst=None):
     """jax.value_and_grad of the weighted total of `model.apply(...,
     train=True)` for `task`, with the mask losses when `masks` (B, G, H/4,
-    W/4) is given, and the DN key pinned to `dn_key`. Returns (total,
-    losses, grads of params["params"])."""
+    W/4) is given, or BoxInst's when `boxinst` (a dict of `box_bitmasks`,
+    `color_similarity` and `step`) is, and the DN key pinned to `dn_key`.
+    Returns (total, losses, grads of params["params"])."""
     import jax
 
     import uninext_tpu.models.detr as jdetr
@@ -173,6 +213,8 @@ def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key,
            "has_masks": masks is not None}
     if masks is not None:
         tgt["masks"] = masks
+    if boxinst is not None:
+        tgt.update(boxinst, has_masks=True)
     weights = loss_weights(cfg)
 
     def loss_fn(p):

@@ -1,5 +1,6 @@
-"""A copy of `uninext_tpu/data/coco.py` without BoxInst's targets (the port
-imports nothing of the JAX package).
+"""A copy of `uninext_tpu/data/coco.py` (the port imports nothing of the JAX
+package), BoxInst's targets included (`boxinst=True`: box bitmasks and the
+LAB colour similarity of `data/boxinst.py` instead of gt masks).
 
 COCO-format dataset loading + the unified detection/grounding mapper.
 
@@ -30,6 +31,7 @@ from PIL import Image
 
 from ..config import DataConfig
 from . import masks as mask_util
+from .boxinst import boxes_to_bitmasks, color_similarity
 from .prompts import (build_detection_prompt, sample_classes_for_training,
                       tokenize_with_positive_map)
 from .tokenizer import BertTokenizer
@@ -188,6 +190,9 @@ class MappedSample:
     masks: Optional[np.ndarray]  # (G, Hb/4, Wb/4) float32 or None
     labels: np.ndarray         # (G,) int32 contiguous category (or 0)
     bucket: Tuple[int, int]    # padded (Hb, Wb) — batching key
+    # BoxInst (box-supervised masks; reference uninext_img.py:529-595)
+    box_bitmasks: Optional[np.ndarray] = None      # (G, Hb/4, Wb/4)
+    color_similarity: Optional[np.ndarray] = None  # (8, Hb/4, Wb/4)
 
 
 class UniDatasetMapper:
@@ -199,7 +204,8 @@ class UniDatasetMapper:
                  max_classes_per_prompt: int = 80,
                  lsj: bool = False, lsj_size: int = 1024,
                  lsj_min_scale: float = 0.1, lsj_max_scale: float = 2.0,
-                 crop_raw: bool = False):
+                 crop_raw: bool = False,
+                 boxinst: bool = False, boxinst_bottom_pixels: int = 0):
         self.cfg = cfg
         self.categories = list(categories)
         self.tok = tokenizer or BertTokenizer()
@@ -216,6 +222,10 @@ class UniDatasetMapper:
         # pre-resizes shortest edge to choice(400,500,600) first
         # (coco_dataset_mapper_uni.py:118-123).
         self.crop_raw = crop_raw
+        # BoxInst: emit box bitmasks + LAB color similarity instead of gt
+        # masks (reference MODEL.BOXINST.ENABLED, stage-1 obj365 pretrain)
+        self.boxinst = boxinst
+        self.boxinst_bottom_pixels = boxinst_bottom_pixels
 
     # -- geometry ------------------------------------------------------
     def _load_and_resize(self, record: Dict, rng: random.Random,
@@ -385,10 +395,33 @@ class UniDatasetMapper:
                 # stride-4 sampling with the reference's start offset
                 gt_masks[i] = full[stride // 2::stride, stride // 2::stride]
 
+        box_bitmasks = color_sim = None
+        if self.boxinst and self.is_train:
+            stride = 4
+            # un-normalize back to [0,255] RGB (reference feeds the ORIGINAL
+            # padded image into the 4x avg-pool -> uint8 -> LAB chain)
+            raw = (padded * np.array(self.cfg.pixel_std, np.float32)
+                   + np.array(self.cfg.pixel_mean, np.float32))
+            vm = np.zeros((Hb, Wb), np.float32)
+            vm[:h, :w] = 1.0
+            # bottom rows cleared, scaled resized/original height
+            # (uninext_img.py:541-546); acts only on the similarity weights
+            pr = int(self.boxinst_bottom_pixels * float(h) / float(max(h0, 1)))
+            if pr > 0:
+                vm[h - pr:h, :] = 0.0
+            color_sim = color_similarity(raw, vm, stride)
+            xyxy = np.stack([
+                (boxes[:, 0] - boxes[:, 2] / 2) * w,
+                (boxes[:, 1] - boxes[:, 3] / 2) * h,
+                (boxes[:, 0] + boxes[:, 2] / 2) * w,
+                (boxes[:, 1] + boxes[:, 3] / 2) * h], axis=-1)
+            box_bitmasks = boxes_to_bitmasks(xyxy, valid, Hb, Wb, stride)
+
         return MappedSample(
             image=padded, img_mask=img_mask,
             image_size=np.array([h, w], np.int32),
             text_ids=text_ids.astype(np.int32),
             text_mask=text_mask.astype(np.int32),
             boxes=boxes, valid=valid, positive_map=pm,
-            masks=gt_masks, labels=labels, bucket=(Hb, Wb))
+            masks=gt_masks, labels=labels, bucket=(Hb, Wb),
+            box_bitmasks=box_bitmasks, color_similarity=color_sim)

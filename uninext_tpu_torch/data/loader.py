@@ -47,6 +47,10 @@ def collate(samples: Sequence[MappedSample]) -> Dict[str, np.ndarray]:
         # NOTE: has_masks stays OUT of the pytree (it is a static argument of
         # make_train_step); presence of the "masks" key is the host-side signal
         batch["targets"]["masks"] = np.stack([s.masks for s in samples])
+    if samples[0].box_bitmasks is not None:
+        batch["targets"]["box_bitmasks"] = np.stack([s.box_bitmasks for s in samples])
+        batch["targets"]["color_similarity"] = np.stack(
+            [s.color_similarity for s in samples])
     return batch
 
 

@@ -5,9 +5,16 @@ of the generator of the step's random numbers, with detectron2's
 `resume_or_load` semantics.
 
 One file per saved step, `<directory>/ckpt_<step>.pt`, written whole and
-then renamed into place; the oldest beyond `max_to_keep` are deleted. Not
-ported: the stage hand-off `load_stage_weights` and its 4-channel
-inflation (they wait for SOT/VOS).
+then renamed into place; the oldest beyond `max_to_keep` are deleted.
+`restore_params` loads the model's weights alone, as stage 2 of the
+training recipe starts from stage 1's checkpoint.
+
+The stage hand-off (`load_stage_weights`, with `inflate_conv_3c_to_4c`)
+carries one stage's weights into the next stage's model, as the JAX
+package's does (the reference's obj365 -> image joint -> video joint
+chain, assets/TRAIN.md): every tensor whose name the source has with the
+same shape is copied, the 4-channel template backbone is taken from the
+image backbone, its first convolution inflated with a zero 4th channel.
 
 Over a mesh (`state.mesh`) every rank calls `save`: the tensor-parallel
 shards of the parameters and of both Adam moments are joined over the
@@ -20,7 +27,7 @@ from __future__ import annotations
 
 import os
 import re
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -102,6 +109,19 @@ class CheckpointManager:
         state.generator.set_state(ckpt["generator"])
         return state, True
 
+    @torch.no_grad()
+    def restore_params(self, model: torch.nn.Module, step: Optional[int] = None
+                       ) -> Tuple[torch.nn.Module, bool]:
+        """Load only the model's weights of a saved step (the latest by
+        default) into `model` in place, no optimizer state or step
+        (`uninext_tpu/engine/checkpoint.py:38`). Returns (model, whether a
+        checkpoint was found)."""
+        ckpt = self._load(step)
+        if ckpt is None:
+            return model, False
+        model.load_state_dict(ckpt["model"])
+        return model, True
+
     def resume_or_load(self, state: TrainState, init_weights_path: Optional[str] = None
                        ) -> Tuple[TrainState, bool]:
         """Resume the whole state from the latest checkpoint if there is
@@ -136,3 +156,77 @@ def state_differences(a: TrainState, b: TrainState) -> List[str]:
     if not torch.equal(a.generator.get_state(), b.generator.get_state()):
         diff.append("generator")
     return diff
+
+
+BACKBONE = "detr.detr.backbone.0.backbone."
+TEMPLATE_BACKBONE = "detr.detr.ref_backbone.0.backbone."
+
+
+def inflate_conv_3c_to_4c(weight: torch.Tensor) -> torch.Tensor:
+    """A convolution's weight (out, 3, kh, kw) -> (out, 4, kh, kw), the new
+    4th input channel zero (`uninext_tpu/engine/checkpoint.py:76`, whose
+    flax layout has the input channels on axis 2; the reference's
+    conversion/convert_3c_to_4c_pth.py: the template backbone takes RGB and
+    a mask)."""
+    out, _, kh, kw = weight.shape
+    return torch.cat([weight, weight.new_zeros(out, 1, kh, kw)], dim=1)
+
+
+def load_stage_weights(target: Dict[str, torch.Tensor], source: Dict[str, torch.Tensor],
+                       inflate_4c: bool = True, verbose: bool = True):
+    """The stage hand-off of `uninext_tpu/engine/checkpoint.py:106` on the
+    port's `state_dict` names, with detectron2's shape-skipping load: each
+    tensor of `target` (the next stage's state dict) whose name `source`
+    (the last stage's) holds with the same shape is copied; missing or
+    mismatched ones keep the target's value and are reported. Two rules of
+    the recipe's last hand-off:
+
+      * the template backbone (`detr.detr.ref_backbone.0.backbone.*`,
+        absent from an image stage's weights) is taken from the image
+        backbone (`detr.detr.backbone.0.backbone.*`) at the same sub-name;
+      * a 4-input-channel convolution whose source has 3 is inflated by
+        `inflate_conv_3c_to_4c`.
+
+    No classifier needs surgery across category sets: classes are prompt
+    tokens. Returns (the new state dict, report) with report {loaded,
+    inflated, remapped_template, missing, mismatched}.
+
+    The counts are of the port's tensors, not of JAX's leaves, and differ
+    wherever the weight bridge (`engine/convert.py`) maps one to several or
+    several to one: JAX's scan-stacked encoder leaf is one tensor per layer
+    here, the decoder self-attention's q, k and v kernels (and biases) are
+    one `in_proj_weight` (`in_proj_bias`), and ViT's `up_res3` Dense is one
+    ConvTranspose2d. FrozenBN's scale, bias, mean and var are four tensors
+    in both (ROADMAP §3.8)."""
+    report = {"loaded": 0, "inflated": 0, "remapped_template": 0,
+              "missing": [], "mismatched": []}
+    out = {}
+    for name, t in target.items():
+        cand, remapped = name, False
+        if cand not in source and name.startswith(TEMPLATE_BACKBONE):
+            cand, remapped = BACKBONE + name[len(TEMPLATE_BACKBONE):], True
+        if cand not in source:
+            out[name] = t
+            report["missing"].append(name)
+            continue
+        s = source[cand]
+        if s.shape == t.shape:
+            out[name] = s.to(dtype=t.dtype, device=t.device)
+        elif (inflate_4c and s.dim() == 4 and t.dim() == 4 and s.shape[1] == 3
+              and t.shape[1] == 4 and s.shape[0] == t.shape[0]
+              and s.shape[2:] == t.shape[2:]):
+            out[name] = inflate_conv_3c_to_4c(s).to(dtype=t.dtype, device=t.device)
+            report["inflated"] += 1
+        else:
+            out[name] = t
+            report["mismatched"].append(
+                f"{name}: src {tuple(s.shape)} vs tgt {tuple(t.shape)}")
+            continue
+        report["loaded"] += 1
+        report["remapped_template"] += int(remapped)
+    if verbose:
+        print(f"[load_stage_weights] loaded {report['loaded']} (inflated "
+              f"{report['inflated']}, template-remapped {report['remapped_template']}), "
+              f"{len(report['missing'])} left at init, {len(report['mismatched'])} "
+              f"shape-skipped")
+    return out, report

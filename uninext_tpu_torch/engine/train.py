@@ -138,15 +138,22 @@ def train_step(state: TrainState, batch: Dict, task: str = "detection"
     """One micro-step on `batch` (images (B, H, W, 3), img_mask,
     image_sizes, text_ids, text_mask, targets as `forward_train` takes
     them, or a pair batch as `loss_and_grads` says); the optimizer updates
-    on every `grad_accum_steps`-th. Returns the total and every loss, and on
-    an update the grad norm before the clip, as tensors on the device. The
-    step reads to the host only the encoder matching costs (Hungarian),
-    simOTA's fix-up checks and the clip decision. With a frozen language
+    on every `grad_accum_steps`-th. With `loss.boxinst` an image batch's
+    targets get `step` = `state.step`, the micro-steps taken, which warms
+    up BoxInst's pairwise term (JAX's `TrainState.step`). Returns the total
+    and every loss, and on an update the grad norm before the clip, as
+    tensors on the device. The step reads to the host only the encoder
+    matching costs (Hungarian), simOTA's fix-up checks and the clip
+    decision. With a frozen language
     model its parameters get no gradient; the optimizer takes a zero
     gradient for them and still decays them, as optax's chain does. Over
     `state.mesh` the batch is this rank's rows (`parallel/mesh.py:
     shard_batch`), and the returned losses are the whole batch's."""
     weights = loss_weights(state.model.cfg)
+    if state.model.cfg.loss.boxinst and "targets" in batch:
+        # the pairwise term's warm-up reads the micro-step (the reference
+        # criterion counts its own forward calls, deformable_detr.py:521)
+        batch = {**batch, "targets": {**batch["targets"], "step": state.step}}
     total, losses = loss_and_grads(state.model, batch, weights, state.generator,
                                    task=task, accumulate=state.optimizer.accumulating,
                                    mesh=state.mesh)

@@ -7,7 +7,10 @@ profiler, evaluation) and `resume_or_load`.
 With `video=True` the batches are (key, ref) pairs
 (`data/video.py:collate_video`), which `engine/train.py:train_step` takes
 through the two-frame forward, or with `task="sot"` through the SOT step
-(whose state has the template branch).
+(whose state has the template branch). A routed pair loader (its first
+batch carries "__task__") gets a state with every branch, the template
+branch included, whatever `task` is, as JAX's `init_all`: a SOT batch may
+come at any step, and the checkpoint holds what `init_all_paths` makes.
 
 The JAX trainer's persistent compilation cache, device mesh, chunked
 steps (a scan of jitted steps) and TensorBoard writer do not carry over:
@@ -49,14 +52,16 @@ def to_device(batch: Dict, device: torch.device, has_masks: bool) -> Dict:
     """A collated numpy batch (`data/loader.py:collate`, or a pair batch of
     `data/video.py:collate_video` with `targets_key` and `targets_ref`) as
     tensors on `device`, text ids as int64, with `has_masks` set in each
-    targets dict. Host-side routing keys ("__task__") stay behind."""
+    targets dict (true with masks, or BoxInst's box bitmasks, and
+    `has_masks`). Host-side routing keys ("__task__") stay behind."""
     mv = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     out = {k: mv(v) for k, v in batch.items() if k not in TARGET_KEYS + ("__task__",)}
     out["text_ids"] = out["text_ids"].long()
     for key in TARGET_KEYS:
         if key in batch:
             out[key] = {k: mv(v) for k, v in batch[key].items()}
-            out[key]["has_masks"] = has_masks and "masks" in batch[key]
+            out[key]["has_masks"] = has_masks and ("masks" in batch[key]
+                                                   or "box_bitmasks" in batch[key])
     return out
 
 
@@ -102,7 +107,10 @@ class Trainer:
                         JSONWriter(f"{output_dir}/metrics.json")] if first else []
         self.ckpt = CheckpointManager(f"{output_dir}/checkpoints")
         self._pending_first = next(loader)
-        self.state = build_train_state(cfg, self.device, seed, template=task == "sot",
+        # a routed pair loader may send any task later, SOT's included: build
+        # every branch then, as JAX's trainer does (`init_all`)
+        template = task == "sot" or (video and "__task__" in self._pending_first)
+        self.state = build_train_state(cfg, self.device, seed, template=template,
                                        mesh=mesh, tp=mesh is not None and mesh.model_size > 1)
         self.model = self.state.model
         self.hooks = default_hooks(

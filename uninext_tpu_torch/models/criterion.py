@@ -1,8 +1,8 @@
 """Set-prediction losses, mirroring `uninext_tpu/models/criterion.py`: the
 token-level focal loss, L1, GIoU and the IoU branch, the CondInst mask
-losses (focal and dice) and the video configs' contrastive reid loss.
-BoxInst's box-supervised mask losses
-(`loss_masks_boxinst` there) are not ported.
+losses (focal and dice), BoxInst's box-supervised mask losses (the
+projection and pairwise terms) and the video configs' contrastive reid
+loss.
 
 Targets are padded to (B, G) with a validity mask and a matching is a
 dense per-query map q2g (B, Q) with -1 for unmatched, so every loss is a
@@ -10,13 +10,15 @@ masked sum.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Iterator, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..config import LossConfig
 from ..parallel.comm import global_count
 from ..utils import box_ops
+from ..utils.misc import checkpointed
 
 
 def sigmoid_ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -100,6 +102,89 @@ def loss_masks(pred_masks: torch.Tensor, target_masks: torch.Tensor,
     focal = sigmoid_focal_loss(pred, tgt, cfg.focal_alpha, cfg.focal_gamma).mean(-1) * v
     dice = dice_loss_elem(pred, tgt) * v
     return {"loss_mask": focal.sum() / num_boxes, "loss_dice": dice.sum() / num_boxes}
+
+
+def _neighbours(x: torch.Tensor, kernel_size: int = 3, dilation: int = 2
+                ) -> Iterator[torch.Tensor]:
+    """x (..., H, W) -> each of its k*k-1 dilated neighbours (..., H, W),
+    zero-padded, in the order of `uninext_tpu/models/criterion.py:115
+    unfold_wo_center` (the reference's, deformable_detr.py:787-810)."""
+    k, d = kernel_size, dilation
+    pad = (k + (d - 1) * (k - 1)) // 2
+    xp = F.pad(x, (pad, pad, pad, pad))
+    H, W = x.shape[-2:]
+    for dy in range(k):
+        for dx in range(k):
+            if dy == k // 2 and dx == k // 2:
+                continue
+            yield xp[..., dy * d:dy * d + H, dx * d:dx * d + W]
+
+
+def _pairwise_sum(mask_logits: torch.Tensor, bitmasks: torch.Tensor,
+                  color_similarity: torch.Tensor, thresh: float, kernel_size: int,
+                  dilation: int) -> torch.Tensor:
+    """The pairwise term's numerator, sum(-log P(same label) x weight), one
+    neighbour at a time: JAX's formula on (B, N, H, W) slices, without its
+    (B, N, 8, H, W) tensors."""
+    log_fg = F.logsigmoid(mask_logits)
+    log_bg = F.logsigmoid(-mask_logits)
+    total = mask_logits.new_zeros(())
+    for i, (fg_n, bg_n) in enumerate(zip(_neighbours(log_fg, kernel_size, dilation),
+                                         _neighbours(log_bg, kernel_size, dilation))):
+        same_fg = log_fg + fg_n
+        same_bg = log_bg + bg_n
+        mx = torch.maximum(same_fg, same_bg)
+        log_same = torch.log(torch.exp(same_fg - mx) + torch.exp(same_bg - mx)) + mx
+        weight = (color_similarity[:, i] >= thresh).float()[:, None] * bitmasks
+        total = total + (-log_same * weight).sum()
+    return total
+
+
+def loss_masks_boxinst(mask_logits: torch.Tensor, box_bitmasks: torch.Tensor,
+                       color_similarity: torch.Tensor, sel_valid: torch.Tensor,
+                       warmup_factor: torch.Tensor, pairwise_color_thresh: float = 0.3,
+                       pairwise_size: int = 3, pairwise_dilation: int = 2, mesh=None
+                       ) -> Dict[str, torch.Tensor]:
+    """BoxInst's box-supervised mask losses (`uninext_tpu/models/
+    criterion.py:134`; the reference's loss_masks_boxinst,
+    deformable_detr.py:457-527), in fp32 whatever the logits' dtype.
+
+    mask_logits (B, N, H, W) of the selected instances; box_bitmasks (B, N,
+    H, W) their gt boxes rasterised (the only supervision);
+    color_similarity (B, 8, H, W) each pixel's similarity to its 8 dilated
+    neighbours; sel_valid (B, N); warmup_factor a scalar in [0, 1].
+
+    `loss_prj`: the dice of the max over rows and of the max over columns
+    of the scores against the bitmasks', summed over the valid instances
+    and divided by their count. `loss_pairwise`: per pixel and neighbour,
+    -log(P(both foreground) + P(both background)) as a log-sum-exp of
+    log-sigmoids, weighted by `color_similarity >= pairwise_color_thresh`
+    times the bitmask, over the weights' sum, times the warm-up factor. The
+    numerator is taken one neighbour at a time under activation
+    checkpointing, so the step keeps no (B, N, 8, H, W) tensor. Over a
+    `mesh` both divisors are the whole batch's (`global_count`)."""
+    x = mask_logits.float()
+    v = sel_valid.float()
+    scores = x.sigmoid() * v[..., None, None]
+    bitmasks = box_bitmasks.float() * v[..., None, None]
+
+    def dice(a, b):
+        a, b = a.flatten(2), b.flatten(2)
+        inter = (a * b).sum(-1)
+        union = (a ** 2).sum(-1) + (b ** 2).sum(-1) + 1e-5
+        return 1.0 - 2 * inter / union
+
+    proj_x = dice(scores.amax(2, keepdim=True), bitmasks.amax(2, keepdim=True))
+    proj_y = dice(scores.amax(3, keepdim=True), bitmasks.amax(3, keepdim=True))
+    loss_prj = ((proj_x + proj_y) * v).sum() / global_count(v.sum(), mesh)
+
+    color_similarity = color_similarity.float()
+    n_pass = (color_similarity >= pairwise_color_thresh).float().sum(1)   # (B, H, W)
+    weight_sum = global_count((n_pass[:, None] * bitmasks).sum(), mesh)
+    numer = checkpointed(_pairwise_sum, x, bitmasks, color_similarity,
+                         pairwise_color_thresh, pairwise_size, pairwise_dilation)
+    loss_pairwise = numer / weight_sum * warmup_factor
+    return {"loss_prj": loss_prj, "loss_pairwise": loss_pairwise}
 
 
 def loss_reid_static(contrast: torch.Tensor, labels3: torch.Tensor,

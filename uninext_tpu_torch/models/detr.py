@@ -16,7 +16,9 @@ template branch (`template=True`), the template prompt
         MLP, on every query (`use_reid`)]
     [-> training: DN queries, per-layer simOTA / encoder Hungarian
         matching, focal, L1, GIoU and IoU-branch losses, and the dynamic
-        masks of the matched queries against the gt masks (focal, dice)]
+        masks of the matched queries against the gt masks (focal, dice) or,
+        with `loss.boxinst`, against their gt boxes (BoxInst's projection
+        and pairwise terms)]
     [-> video training: key and ref frames through one backbone pass and
         two transformer passes, the key frame's losses, and the contrastive
         reid loss between the key frame's matched queries and the ref
@@ -51,7 +53,7 @@ Random numbers of training (DN box noise, drop-path masks) come from an
 explicit `torch.Generator`, or the DN noise from the caller; the JAX
 package's `jax.random` stream is not reproduced.
 
-Not ported yet: the ConvNeXt backbone and BoxInst's mask losses.
+Not ported yet: the ConvNeXt backbone.
 """
 from __future__ import annotations
 
@@ -523,8 +525,11 @@ class UninextDETR(nn.Module):
         targets: boxes (B, G, 4) cxcywh normalised, valid (B, G) bool,
         positive_map (B, G, T) bool (detection only), and with has_masks
         True the instance masks (B, G, H/4, W/4) in {0, 1}, which add the
-        mask losses. Drop-path masks and, unless `dn_noise` = (sign, part)
-        is given, the DN box noise come from `generator`. Under data
+        mask losses, or with `loss.boxinst` the box bitmasks (B, G, H/4,
+        W/4), the colour similarity (B, 8, H/4, W/4) and the micro-step
+        `step`, which add BoxInst's. Drop-path masks and, unless
+        `dn_noise` = (sign, part) is given, the DN box noise come from
+        `generator`. Under data
         parallelism (`mesh`; the batch is this rank's rows) the draws are
         the whole batch's, cut to this rank's rows, and every loss
         normaliser is the whole batch's (`parallel/comm.py:global_count`)."""
@@ -714,10 +719,13 @@ class UninextDETR(nn.Module):
         the DN slots by construction; with has_masks, the mask losses of each
         layer's first `mask_head.max_insts` matched queries, whose dynamic
         masks sit at their base references' centres. Grounding aligns with
-        one pooled token: a positive map of ones for every valid gt. Keys as
-        the JAX package's: `loss_ce`, `loss_bbox`, `loss_giou`,
-        `loss_boxiou`, `loss_mask`, `loss_dice` of the last layer, `_{lvl}`
-        for the others, `_enc` and `_dn`."""
+        one pooled token: a positive map of ones for every valid gt. With
+        `loss.boxinst` the mask losses are BoxInst's, against the targets'
+        `box_bitmasks` and `color_similarity`, the pairwise term warmed up
+        by `targets["step"]`. Keys as the JAX package's: `loss_ce`,
+        `loss_bbox`, `loss_giou`, `loss_boxiou`, `loss_mask`, `loss_dice`
+        (or `loss_prj`, `loss_pairwise`) of the last layer, `_{lvl}` for the
+        others, `_enc` and `_dn`."""
         c = self.cfg
         t = c.transformer
         lcfg = c.loss
@@ -733,11 +741,20 @@ class UninextDETR(nn.Module):
 
         mask_feats = None
         if c.mask_head.enabled and targets.get("has_masks", False):
-            if lcfg.boxinst:
-                raise NotImplementedError("BoxInst's mask losses are not ported yet")
             mask_feats = self._mask_feats(trans["memory"], spatial_shapes)
-            tgt_masks_all = targets["masks"].float()
             scale = image_sizes.flip(-1)[:, None].float()         # (B, 1, 2) = (w, h)
+            if lcfg.boxinst:
+                # BoxInst: box bitmasks and colour similarity, no gt masks;
+                # the pairwise term warms up over the micro-steps
+                if "box_bitmasks" not in targets or "color_similarity" not in targets:
+                    raise ValueError("BoxInst's mask losses need the targets' box_bitmasks "
+                                     "and color_similarity (UniDatasetMapper(boxinst=True))")
+                tgt_masks_all = targets["box_bitmasks"].float()
+                step = torch.as_tensor(targets.get("step", 0), dtype=torch.float32,
+                                       device=gt_boxes.device)
+                warmup = (step / lcfg.boxinst_warmup_iters).clamp(0.0, 1.0)
+            else:
+                tgt_masks_all = targets["masks"].float()
 
         per_layer: Dict[str, List[torch.Tensor]] = {}
         for layer in layers:
@@ -765,7 +782,14 @@ class UninextDETR(nn.Module):
                 mask_logits = dynamic_mask_forward(mask_feats, centers, params,
                                                    c.mask_head)
                 tgt = crit.gather_by_match(tgt_masks_all, torch.gather(q2g, 1, sel_q))
-                out.update(crit.loss_masks(mask_logits, tgt, sel_valid, num_boxes, lcfg))
+                if lcfg.boxinst:
+                    out.update(crit.loss_masks_boxinst(
+                        mask_logits, tgt, targets["color_similarity"], sel_valid, warmup,
+                        lcfg.boxinst_pairwise_color_thresh, lcfg.boxinst_pairwise_size,
+                        lcfg.boxinst_pairwise_dilation, mesh))
+                else:
+                    out.update(crit.loss_masks(mask_logits, tgt, sel_valid, num_boxes,
+                                               lcfg))
             for k, v in out.items():
                 per_layer.setdefault(k, []).append(v)
         losses: Dict[str, torch.Tensor] = {}

@@ -11,9 +11,14 @@ and `kernel_times`, which times the NMS kernel and fold B (see its
 docstring), `ap_check`, which trains `image_joint_r50` on the in-repo
 mini-COCO and reports its AP (`tools/real_ap_check.py --flagship`'s
 protocol), `vis_check`, which trains a video config on the in-repo
-mini-YTVIS and reports its track mAP (`tools/real_vis_check.py`'s), and
-`multihost_smoke`, two ranks that take one data-parallel step together
-(`tools/multihost_smoke.py`'s).
+mini-YTVIS and reports its track mAP (`tools/real_vis_check.py`'s),
+`sot_check` (`tools/real_sot_check.py`'s SOT AUC and VOS J&F), the
+training recipe's `rec_check` (`tools/real_rec_check.py`'s REC/RES
+scores), `pipeline_check` (`tools/pipeline3_check.py`'s three stages:
+BoxInst, image joint, video joint through the hand-off) and `joint_check`
+(`tools/real_joint_check.py`'s one model on five video families), which
+share `evidence.py`, and `multihost_smoke`, two ranks that take one
+data-parallel step together (`tools/multihost_smoke.py`'s).
 """
 import torch
 

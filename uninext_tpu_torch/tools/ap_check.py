@@ -41,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import UninextConfig, image_joint_r50, tiny_test_config
+from ..config import UninextConfig, image_joint_r50
 from ..data.coco import UniDatasetMapper, load_coco_json
 from ..data.loader import MultiDatasetLoader
 from ..data.mini_coco import make_mini_coco
@@ -50,6 +50,7 @@ from ..data.tokenizer import BertTokenizer
 from ..engine.evaluator import DetectionEvaluator
 from ..engine.hooks import HookBase
 from ..engine.trainer import Trainer
+from .evidence import build_tiny_cfg
 
 REPO = Path(__file__).resolve().parents[2]
 LSJ = dict(lsj=True, lsj_size=224, lsj_min_scale=0.6, lsj_max_scale=1.4)
@@ -70,17 +71,7 @@ def build_cfg(steps: int, flagship: bool = True) -> UninextConfig:
                                        vl_lr=2e-4, warmup_iters=50, max_iter=steps,
                                        checkpoint_period=10 ** 9,
                                        steps=(int(steps * 0.8),)))
-    cfg = tiny_test_config()
-    return dataclasses.replace(
-        cfg,
-        data=dataclasses.replace(cfg.data, max_insts=8, max_text_len=32,
-                                 min_size_train=(224,), max_size_train=352,
-                                 min_size_test=224, max_size_test=352),
-        solver=dataclasses.replace(cfg.solver, base_lr=3e-4, lang_lr=3e-4, vl_lr=3e-4,
-                                   backbone_multiplier=1.0, warmup_iters=40,
-                                   grad_clip=1.0, max_iter=steps,
-                                   checkpoint_period=10 ** 9,
-                                   steps=(int(steps * 0.8),)))
+    return build_tiny_cfg(steps, 224, 352)
 
 
 def fixture(root: str, cfg: UninextConfig, n_train: int, n_val: int):

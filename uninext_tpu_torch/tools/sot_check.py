@@ -46,9 +46,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import UninextConfig, tiny_test_config, video_joint_r50
+from ..config import UninextConfig, video_joint_r50
 from ..data.loader import MultiDatasetLoader
-from ..data.masks import polygons_to_mask
 from ..data.mini_coco import make_mini_ytvis
 from ..data.video import VideoPairMapper, load_ytvis_json
 from ..engine.sot_inference import SOTDriver, VOSDriver
@@ -56,7 +55,8 @@ from ..engine.trainer import Trainer
 from ..evaluation.davis_eval import evaluate_davis
 from ..evaluation.sot_eval import evaluate_sot, evaluate_sot_dataset
 from .ap_check import REPO, StepLog, card
-from .vis_check import H, W, frames_of
+from .evidence import (H, W, build_tiny_cfg, frames_of, peak_gib, scaled_track_gt,
+                       step_summary)
 
 FRAME_RANGE = 7
 
@@ -76,38 +76,7 @@ def build_cfg(steps: int, flagship: bool = False) -> UninextConfig:
                                        warmup_iters=50, max_iter=steps,
                                        checkpoint_period=10 ** 9,
                                        steps=(int(steps * 0.8),)))
-    cfg = tiny_test_config()
-    data = dataclasses.replace(cfg.data, max_insts=8, max_text_len=32,
-                               min_size_train=(H,), max_size_train=W,
-                               min_size_test=H, max_size_test=W,
-                               sampling_frame_range=FRAME_RANGE)
-    return dataclasses.replace(
-        cfg, data=data,
-        solver=dataclasses.replace(cfg.solver, base_lr=3e-4, lang_lr=3e-4, vl_lr=3e-4,
-                                   backbone_multiplier=1.0, warmup_iters=40,
-                                   grad_clip=1.0, max_iter=steps,
-                                   checkpoint_period=10 ** 9,
-                                   steps=(int(steps * 0.8),)))
-
-
-def scaled_track_gt(rec, h, w):
-    """The first track of a video record at an (h, w) frame size: gt boxes
-    xywh (T, 4), the first frame's box xyxy and the per-frame boolean
-    masks (`tools/_evidence_common.py:scaled_track_gt`)."""
-    track = rec["tracks"][0]
-    sx, sy = w / rec["width"], h / rec["height"]
-    gt_xywh = np.array([[b[0] * sx, b[1] * sy, b[2] * sx, b[3] * sy]
-                        for b in track["bboxes"]], np.float32)
-    init_xyxy = np.array([gt_xywh[0, 0], gt_xywh[0, 1], gt_xywh[0, 0] + gt_xywh[0, 2],
-                          gt_xywh[0, 1] + gt_xywh[0, 3]], np.float32)
-    gt_masks = []
-    for fi in range(rec["length"]):
-        segs = track["segmentations"][fi]
-        m = (polygons_to_mask([np.array(s) * np.array([sx, sy] * (len(s) // 2))
-                               for s in segs], h, w)
-             if segs else np.zeros((h, w), np.uint8))
-        gt_masks.append(m.astype(bool))
-    return gt_xywh, init_xyxy, gt_masks
+    return build_tiny_cfg(steps, frame_range=FRAME_RANGE)
 
 
 def eval_sot_vos(model, cfg, val_recs, device):
@@ -182,19 +151,15 @@ def main(argv=None):
             trainer.train()
             train_s = time.perf_counter() - t0
             batches.close()             # stops the loader's mapping threads
-            peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
-                    if device.type == "cuda" else None)
+            peak = peak_gib(device)
             t0 = time.perf_counter()
             agg, jf, per_video = eval_sot_vos(trainer.model.eval(), cfg, val_recs, device)
             eval_s = time.perf_counter() - t0
-            ms = np.asarray(timer.seconds) * 1e3
             per_seed.append({
                 "seed": seed, "sot_auc": agg["AUC"], "sot_precision": agg["P"],
                 "sot_pnorm": agg["Pnorm"], "vos_jf": jf, "per_video": per_video,
                 "train_seconds": train_s, "eval_seconds": eval_s,
-                "step_ms": {"median": float(np.median(ms)), "min": float(ms.min()),
-                            "max": float(ms.max()), "first_step": float(ms[0]),
-                            "steps": len(ms)},
+                "step_ms": step_summary(timer.seconds),
                 "final_total_loss": timer.total_loss[-1], "train_peak_gib": peak})
             print(f"[sot_check] seed {seed}: {args.steps} sot steps in {train_s:.1f} s, "
                   f"AUC {agg['AUC']:.4f}, P {agg['P']:.4f}, J&F {jf:.4f}", flush=True)

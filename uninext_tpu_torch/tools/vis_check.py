@@ -38,9 +38,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
-from PIL import Image
 
-from ..config import UninextConfig, tiny_test_config, video_joint_r50
+from ..config import UninextConfig, video_joint_r50
 from ..data.loader import MultiDatasetLoader
 from ..data.mini_coco import make_mini_ytvis
 from ..data.prompts import create_label_token_map
@@ -50,10 +49,8 @@ from ..engine.trainer import Trainer
 from ..engine.video_inference import VISDriver
 from ..evaluation.ytvis_eval import evaluate_ytvis, video_output_to_ytvis
 from .ap_check import REPO, StepLog, card
-
-MEAN = np.array([123.675, 116.28, 103.53], np.float32)
-STD = np.array([58.395, 57.12, 57.375], np.float32)
-H, W = 192, 256
+from .evidence import (H, W, build_tiny_cfg, finite, frames_of, peak_gib,
+                       remap_result_ids, step_summary)
 
 
 def build_cfg(steps: int, flagship: bool = False) -> UninextConfig:
@@ -71,34 +68,7 @@ def build_cfg(steps: int, flagship: bool = False) -> UninextConfig:
                                        warmup_iters=50, max_iter=steps,
                                        checkpoint_period=10 ** 9,
                                        steps=(int(steps * 0.8),)))
-    cfg = tiny_test_config()
-    data = dataclasses.replace(cfg.data, max_insts=8, max_text_len=32,
-                               min_size_train=(H,), max_size_train=W,
-                               min_size_test=H, max_size_test=W,
-                               sampling_frame_range=5)
-    return dataclasses.replace(
-        cfg, use_reid=True, data=data,
-        solver=dataclasses.replace(cfg.solver, base_lr=3e-4, lang_lr=3e-4, vl_lr=3e-4,
-                                   backbone_multiplier=1.0, warmup_iters=40,
-                                   grad_clip=1.0, max_iter=steps,
-                                   checkpoint_period=10 ** 9,
-                                   steps=(int(steps * 0.8),)))
-
-
-def frames_of(rec):
-    """A video record's frames, normalised, each (1, H, W, 3) (the fixture
-    writes them at the network's size)."""
-    return [((np.asarray(Image.open(fp).convert("RGB"), np.float32) - MEAN) / STD)[None]
-            for fp in rec["file_names"]]
-
-
-def remap_result_ids(results, gt):
-    """Prediction category ids (contiguous index + 1, video_output_to_ytvis)
-    -> the gt json's dataset ids."""
-    id_map = {i + 1: c["id"] for i, c in enumerate(
-        sorted(gt["categories"], key=lambda c: c["id"]))}
-    return [{**r, "category_id": id_map.get(r["category_id"], r["category_id"])}
-            for r in results]
+    return build_tiny_cfg(steps, frame_range=5, use_reid=True)
 
 
 def eval_vis(model, cfg, val_recs, val_json, cats, device):
@@ -161,21 +131,17 @@ def main(argv=None):
             trainer.train()
             train_s = time.perf_counter() - t0
             batches.close()             # stops the loader's mapping threads
-            peak = (torch.cuda.max_memory_allocated(device) / 2 ** 30
-                    if device.type == "cuda" else None)
+            peak = peak_gib(device)
             t0 = time.perf_counter()
             res, video_s = eval_vis(trainer.model, cfg, val_recs, paths["val_json"],
                                     cats, device)
             eval_s = time.perf_counter() - t0
-            res = {k: (float(v) if np.isfinite(v) else None) for k, v in res.items()}
-            ms = np.asarray(timer.seconds) * 1e3
+            res = finite(res)
             per_seed.append({
                 "seed": seed, "vis_map": res["AP"], "vis_ap50": res["AP50"], "ytvis": res,
                 "train_seconds": train_s, "eval_seconds": eval_s,
                 "eval_seconds_per_video": float(np.mean(video_s)),
-                "step_ms": {"median": float(np.median(ms)), "min": float(ms.min()),
-                            "max": float(ms.max()), "first_step": float(ms[0]),
-                            "steps": len(ms)},
+                "step_ms": step_summary(timer.seconds),
                 "final_total_loss": timer.total_loss[-1], "train_peak_gib": peak})
             print(f"[vis_check] seed {seed}: {args.steps} pair steps in {train_s:.1f} s, "
                   f"track mAP {res['AP']}, AP50 {res['AP50']}", flush=True)
