@@ -7,8 +7,9 @@ serving, the two-frame training step and the video loop to a track mAP),
 its annotation-prompt family (SOT, VOS, R-VOS serving, the SOT training
 step, the ViT-H SOT/VOS frame step and the SOT loop to an AUC and a J&F),
 data and tensor parallelism, the three-stage training recipe (BoxInst,
-the stage hand-off, the routed image and video stages), and the labs
-(`tools/`).
+the stage hand-off, the routed image and video stages), ConvNeXt-L's
+image and video presets (serving, training, the hand-off, SOT/VOS/R-VOS
+and the SOT step) with a RoBERTa request, and the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -173,6 +174,24 @@ nonzero):
      pair 40, 22), as paths "recipe_boxinst", "recipe_image_joint" and
      "recipe_video_joint"; MSDA and MSDA-bwd against their plain versions
      at every shape the phase gave them.
+  19. ConvNeXt-L and RoBERTa (`phase_convnext`): `image_joint_convnext_large`
+     (depths 3/3/27/3, dims 192-1536, 337.73M parameters, random weights
+     from a seed) through phase 7's requests (detection, instance masks,
+     REC/RES; MSDA 12 and NMS 1, 1, 0 a request) and phase 8's step with
+     drop-path 0.7 on (1 warm-up and 3 timed steps; MSDA 18 of which 6
+     recomputes, MSDA-bwd 12; the stem frozen and bit-equal, a stage-1 MLP
+     moves); the small ConvNeXt model of `tools/convnext_check.py` card vs
+     CPU in fp32 (phase 4's check); `load_stage_weights` into
+     `video_joint_convnext_large` with its 4-channel template ConvNeXt (1
+     inflated: the stem, (192, 3, 4, 4) -> (192, 4, 4, 4)); phase 13's SOT,
+     VOS and R-VOS paths and phase 14's SOT step on that preset; one
+     REC/RES request of `image_joint_r50` with `roberta_base_language()`
+     (20 seeded ids, the last 6 the pad id 1). Paths "convnext_detection",
+     "convnext_instseg", "convnext_rec", "convnext_training",
+     "convnext_reference", "convnext_sot", "convnext_vos", "convnext_rvos",
+     "convnext_sot_training", "roberta_rec"; MSDA and MSDA-bwd held to
+     their plain versions at every shape the phase gave them, NMS's keep
+     masks at its requests' inputs.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -205,6 +224,7 @@ VIDEO_LOOP_VIDEOS = (4, 2)  # train and val videos of the loop's mini-YTVIS
 SOT_HW = (800, 1216)       # bench.py:bench_sot's SOT size
 SOT_FRAMES = 6
 SOT_TRAIN_STEPS = 2
+CONVNEXT_TRAIN_STEPS = 3   # timed steps of image_joint_convnext_large, after 1 warm-up
 SOT_LOOP_STEPS = 10
 SOT_LOOP_VIDEOS = (4, 2)   # train and val videos of the loop's single-object mini-YTVIS
 # NVIDIA H100 SXM data sheet, dense, at 700 W: the bound of a kernel is the
@@ -1325,9 +1345,9 @@ def _train_batch(cfg, dev):
 def phase_training(cfg, label: str, n_steps: int, profile: bool):
     """The training step of `cfg` at full width: 1 warm-up and `n_steps`
     timed steps. The optimizer's frozen group (R50's stem, res2 and every
-    FrozenBN mean and var) must come out bit-equal, and with R50 a res3
-    convolution must have moved. Returns the launch counts of the timed
-    steps."""
+    FrozenBN mean and var; ConvNeXt's stem) must come out bit-equal, and
+    with R50 a res3 convolution, with ConvNeXt a stage-1 MLP, must have
+    moved. Returns the launch counts of the timed steps."""
     import torch
     from uninext_tpu_torch.engine.train import build_train_state, train_step
     dev = torch.device("cuda")
@@ -1337,22 +1357,28 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
     batch = _train_batch(cfg, dev)
     params = dict(state.model.named_parameters())
     frozen = {n: params[n].detach().clone() for n in state.optimizer.names.get("frozen", [])}
-    res3 = "detr.detr.backbone.0.backbone.res3.0.conv2.weight"
+    res3 = ("detr.detr.backbone.0.backbone." + BACKBONE_PARAMS[cfg.backbone.name][1]
+            if cfg.backbone.name in BACKBONE_PARAMS else None)
     moving = {n: params[n].detach().clone() for n in params if n == res3}
     torch.cuda.synchronize()
     n_valid = batch["targets"]["valid"].sum(1).tolist()
     backbone = (f"ViT drop-path {cfg.backbone.vit_drop_path_rate} and per-block "
                 f"checkpointing {cfg.backbone.vit_use_checkpoint}" if is_vit else
-                f"{cfg.backbone.name}, {len(frozen)} frozen parameters")
+                f"{cfg.backbone.name}, {len(frozen)} frozen parameters"
+                + (f", drop-path {cfg.backbone.drop_path_rate}"
+                   if cfg.backbone.name == "convnext_large" else ""))
     print(f"[training] {label}, bs={TRAIN_BATCH} at {IMAGE_HW[0]}x"
           f"{IMAGE_HW[1]} (image 1 valid on 800x1088), {n_valid} gt boxes, fp32 "
           f"parameters and AdamW state, {cfg.compute_dtype} compute, {backbone}, "
           f"encoder checkpointing {cfg.remat_encoder}; set up in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_step(state, batch)
+    warm = float(train_step(state, batch)["grad_norm"])
     torch.cuda.synchronize()
-    print(f"[training] {label} warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"[training] {label} warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, grad "
+          f"norm before the clip {warm:.6g}")
+    if not math.isfinite(warm):
+        raise AssertionError(f"{label} warm-up step: grad norm {warm}")
 
     counters = _counters()
     from uninext_tpu_torch.models import vit
@@ -1429,6 +1455,15 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
     del state, batch, params, frozen, moving
     torch.cuda.empty_cache()
     return launches
+
+
+# per backbone family: the prefixes of its frozen parameters (the optimizer's
+# "frozen" group holds them, JAX's `classify_param`) and a parameter past
+# them that trains
+BACKBONE_PARAMS = {
+    "resnet50": (("stem.", "res2."), "res3.0.conv2.weight"),
+    "convnext_large": (("downsample_layers.0.",), "stages.1.0.pwconv1.weight"),
+}
 
 
 def _recording_msda():
@@ -2183,7 +2218,7 @@ def _box_masks(boxes_xyxy, H, W):
     return out
 
 
-def phase_sot_serving(cfg):
+def phase_sot_serving(cfg, label: str = "video_joint_r50"):
     """The annotation-prompt family of `video_joint_r50` at full width
     (random weights from seed 0, bf16, the 4-channel template R50 and the
     P3-P6 fuser: a 256x256 crop makes a 1024-token prompt, 2048 with a
@@ -2216,9 +2251,9 @@ def phase_sot_serving(cfg):
     n_tb = sum(p.numel() for n, p in model.named_parameters()
                if n.startswith(("detr.detr.ref_backbone.", "detr.sot_fuser.",
                                 "detr.adjust_layer.")))
-    print(f"[sot] video_joint_r50 with the template branch: "
+    print(f"[sot] {label} with the template branch: "
           f"{sum(p.numel() for p in model.parameters()) / 1e6:.2f}M parameters (template "
-          f"branch {n_tb / 1e6:.2f}M: 4-channel R50, fuser, adjust_layer), "
+          f"branch {n_tb / 1e6:.2f}M: 4-channel {cfg.backbone.name}, fuser, adjust_layer), "
           f"{cfg.compute_dtype} compute, random weights from seed 0, built in "
           f"{time.perf_counter() - t0:.1f} s")
     counters = _counters()
@@ -2263,7 +2298,7 @@ def phase_sot_serving(cfg):
     med, lo, hi = _median_after_first([x * 1e3 for x in times[1:]])
     print(f"[sot] {SOT_FRAMES} frames at {H}x{W}, prompt {2 * 1024} tokens (the first "
           f"template and the latest): template encodes ms {[round(x, 1) for x, _ in enc_log]} "
-          f"(crop, 4-channel R50, fuser, adjust_layer); per-frame ms (frame step, box to the "
+          f"(crop, 4-channel {cfg.backbone.name}, fuser, adjust_layer); per-frame ms (frame step, box to the "
           f"host, the re-encode on every 2nd frame) first {times[1] * 1e3:.1f}, then median "
           f"{med:.1f} ({lo:.1f}-{hi:.1f}); frame steps alone ms "
           f"{[round(x, 1) for x, _ in step_log]}; video {total_ms:.1f} ms; peak "
@@ -2352,7 +2387,7 @@ def phase_sot_serving(cfg):
     return launches, msda_rec
 
 
-def phase_sot_training(cfg, n_steps: int):
+def phase_sot_training(cfg, n_steps: int, label: str = "video_joint_r50"):
     """The SOT training step of `video_joint_r50` at full width
     (`engine/train.py:train_step(task="sot")` on a pair batch at bs=2, key
     and ref at IMAGE_HW with masks: the ref frame's template crop with its
@@ -2375,24 +2410,29 @@ def phase_sot_training(cfg, n_steps: int):
     params = dict(state.model.named_parameters())
     frozen = {n: params[n].detach().clone() for n in state.optimizer.names["frozen"]}
     tb = "detr.detr.ref_backbone.0.backbone."
+    frozen_prefixes, trains = BACKBONE_PARAMS[cfg.backbone.name]
     template_frozen = [n for n in frozen if n.startswith(tb)]
-    if not any(n.startswith(tb + "stem.") for n in template_frozen) or not any(
-            n.startswith(tb + "res2.") for n in template_frozen):
-        raise AssertionError("the template R50's stem and res2 are not in the frozen group")
-    moving = [tb + "res3.0.conv2.weight", "detr.sot_fuser.refine.3.weight",
-              "detr.adjust_layer.weight"]
+    missing = [p for p in frozen_prefixes
+               if not any(n.startswith(tb + p) for n in template_frozen)]
+    if missing:
+        raise AssertionError(f"the template backbone's {missing} are not in the frozen group")
+    moving = [tb + trains, "detr.sot_fuser.refine.3.weight", "detr.adjust_layer.weight"]
     before_moving = {n: params[n].detach().clone() for n in moving}
     bert = [n for n in params if n.startswith("text_encoder.")]
     torch.cuda.synchronize()
-    print(f"[sot training] video_joint_r50 with the template branch, bs={TRAIN_BATCH} (key, "
+    print(f"[sot training] {label} with the template branch, bs={TRAIN_BATCH} (key, "
           f"ref) pairs at {IMAGE_HW[0]}x{IMAGE_HW[1]} with masks, the template from the first "
           f"valid ref slot (crop {cfg.sot.template_size}, 4th channel its gt mask), "
-          f"sot_loss_scale {cfg.loss.sot_loss_scale}; {len(template_frozen)} template R50 "
-          f"parameters frozen; set up in {time.perf_counter() - t0:.1f} s")
+          f"sot_loss_scale {cfg.loss.sot_loss_scale}; {len(template_frozen)} template "
+          f"{cfg.backbone.name} parameters frozen; set up in "
+          f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    train_step(state, batch, task="sot")
+    warm = float(train_step(state, batch, task="sot")["grad_norm"])
     torch.cuda.synchronize()
-    print(f"[sot training] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"[sot training] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, grad norm "
+          f"before the clip {warm:.6g}")
+    if not math.isfinite(warm):
+        raise AssertionError(f"sot training warm-up step: grad norm {warm}")
     counters = _counters()
     t = cfg.transformer
     n_remat = t.enc_layers if cfg.remat_encoder else 0
@@ -2448,8 +2488,9 @@ def phase_sot_training(cfg, n_steps: int):
     if moved:
         raise AssertionError(f"sot training: frozen parameters moved: {moved[:5]}")
     print(f"[sot training] moved: {moving}; the {len(frozen)} frozen parameters bit-equal "
-          f"({len(template_frozen)} of them the template R50's stem, res2 and FrozenBN "
-          f"statistics); frozen BERT: no gradient, each update = before x (1 - lr_lang x "
+          f"({len(template_frozen)} of them the template {cfg.backbone.name}'s "
+          f"{', '.join(frozen_prefixes)} parameters (and a ResNet's FrozenBN statistics)); "
+          f"frozen BERT: no gradient, each update = before x (1 - lr_lang x "
           f"schedule x wd) within {decay_err:.3g} (relative; tolerance 2.5e-7)")
     checks = _check_msda_calls(calls, label="sot training")
     del state, batch, params, frozen
@@ -3338,6 +3379,182 @@ def phase_recipe(dev=None):
     return launches, checks, {"recipe_nms_inputs": len(nms_calls)}
 
 
+def _convnext_reference():
+    """The small ConvNeXt model of `uninext_tpu_torch/tools/convnext_check.py`
+    (`tiny_convnext_cfg`: depths 2/2/4/2, dims 32/64/96/128, drop-path 0)
+    on the card against the same weights on the CPU, fp32: serving with the
+    instance masks and REC/RES, one train step (`_reference_pair`). Returns
+    the launches of this path."""
+    import torch
+    from uninext_tpu_torch.tools.convnext_check import tiny_convnext_cfg
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    _reference_pair(tiny_convnext_cfg(10), "ConvNeXt", ("detection", "masks"), (64, 96))
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _convnext_handoff():
+    """`load_stage_weights` from `image_joint_convnext_large` (seed 0) into
+    `video_joint_convnext_large` with the template branch (seed 1): every
+    image tensor loaded, the 4-channel template ConvNeXt taken from the
+    image one with its stem (192, 3, 4, 4) inflated to (192, 4, 4, 4), a
+    zero 4th channel, no shape skipped; the new tensors are the reid head's,
+    the fuser's, `adjust_layer`'s. The video model loads the result."""
+    import torch
+    from uninext_tpu_torch.config import image_joint_convnext_large, video_joint_convnext_large
+    from uninext_tpu_torch.engine.checkpoint import (BACKBONE, TEMPLATE_BACKBONE,
+                                                     load_stage_weights)
+    from uninext_tpu_torch.models.detr import build_model
+    t0 = time.perf_counter()
+    image = build_model(image_joint_convnext_large(), seed=0).state_dict()
+    video = build_model(video_joint_convnext_large(), seed=1, template=True)
+    torch.cuda.synchronize()
+    built_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd, rep = load_stage_weights(video.state_dict(), image, verbose=False)
+    video.load_state_dict(sd)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    stem = "downsample_layers.0.0.weight"
+    t_stem = video.state_dict()[TEMPLATE_BACKBONE + stem]
+    template = [k for k in sd if k.startswith(TEMPLATE_BACKBONE)]
+    new = sorted({k.split(".")[1] if k.startswith("detr.") else k.split(".")[0]
+                  for k in rep["missing"]})
+    if (rep["inflated"] != 1 or rep["mismatched"] or rep["remapped_template"] != len(template)
+            or rep["loaded"] != len(image) + len(template)
+            or t_stem.shape != (192, 4, 4, 4)
+            or not torch.equal(t_stem[:, :3], image[BACKBONE + stem])
+            or bool(t_stem[:, 3].any())
+            or any(not k.startswith(("detr.reid_embed_head.", "detr.sot_fuser.",
+                                     "detr.adjust_layer.")) for k in rep["missing"])):
+        raise AssertionError(f"ConvNeXt hand-off: {({k: v for k, v in rep.items() if k != 'missing'})}, "
+                             f"new {new}, template stem {tuple(t_stem.shape)}")
+    print(f"[convnext] hand-off image_joint_convnext_large -> video_joint_convnext_large "
+          f"(template branch): loaded {rep['loaded']} tensors (inflated {rep['inflated']}: the "
+          f"template stem (192, 3, 4, 4) -> (192, 4, 4, 4), 4th channel zero; template-remapped "
+          f"{rep['remapped_template']} from the image ConvNeXt), {len(rep['missing'])} new "
+          f"(the {', '.join(new)}), {len(rep['mismatched'])} shape-skipped; models built in "
+          f"{built_s:.1f} s, hand-off and load {load_s:.1f} s")
+    del image, video, sd
+    torch.cuda.empty_cache()
+
+
+def _roberta_request():
+    """One REC/RES request of `image_joint_r50` with the RoBERTa tower
+    (`roberta_base_language()`: 50265 ids, 514 positions, one token type):
+    20 ids from a seeded draw, the last 6 the pad id 1 (masked out; RoBERTa
+    takes its positions from the ids), at IMAGE_HW, through the grounding
+    forward and `postprocess_rec` (MSDA 12, NMS 0). Returns its launches."""
+    import dataclasses
+    import torch
+    from uninext_tpu_torch.config import image_joint_r50, roberta_base_language
+    from uninext_tpu_torch.models.detr import build_model
+    from uninext_tpu_torch.models.postprocess import postprocess_rec
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(image_joint_r50(), language=roberta_base_language())
+    model = build_model(cfg, seed=0).eval()
+    n_lang = sum(p.numel() for p in model.bert.parameters())
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids = torch.randint(3, cfg.language.vocab_size, (1, 20), device=dev, generator=g)
+    ids[:, 14:] = cfg.language.pad_token_id
+    tmask = (ids != cfg.language.pad_token_id).int()
+    img, pad, sizes = _serving_requests(dev)[0]
+    counters = _counters()
+    t = cfg.transformer
+    expect = {**dict.fromkeys(counters, 0), "ms_deform_attn_fwd": t.enc_layers + t.dec_layers}
+    ms = []
+    with torch.inference_mode():
+        for r in range(3):
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            out = model(img, pad, sizes, ids, tmask, task="grounding")
+            post = postprocess_rec(model, out, sizes)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            launches = {k: c.launches for k, c in counters.items()}
+            _check_outputs("rec", out, post, cfg)
+            if launches != expect:
+                raise AssertionError(f"RoBERTa request: launches {launches} != {expect}")
+    print(f"[convnext] image_joint_r50 with RoBERTa ({n_lang / 1e6:.2f}M parameters in the "
+          f"language tower, {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M in all): "
+          f"REC/RES requests of 20 ids (6 of them pad id 1) at {IMAGE_HW[0]}x{IMAGE_HW[1]}, "
+          f"ms {', '.join(f'{x:.1f}' for x in ms)}; box {[round(x, 4) for x in post['box'][0].tolist()]}; "
+          f"launches per request {_nonzero(expect)}")
+    del model, out, post
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_convnext(profile: bool):
+    """ConvNeXt-L (`image_joint_convnext_large`, `video_joint_convnext_large`:
+    depths 3/3/27/3, dims 192-1536, drop-path 0.7, random weights from a
+    seed) and RoBERTa, at full width: the three serving paths (detection,
+    instance masks, REC/RES; phase 7's requests), the training step (bs=2 at
+    800x1216, drop-path 0.7 on; 1 warm-up and 3 timed steps; the stem frozen
+    and bit-equal, a stage-1 MLP moves), the small ConvNeXt model card vs
+    CPU (phase 4's check), the stage hand-off into the video preset with its
+    4-channel template ConvNeXt, SOT, VOS and R-VOS serving through the
+    template ConvNeXt (phase 13), the SOT training step (phase 14: the
+    4-channel trunk's backward), and one REC/RES request of `image_joint_r50`
+    with the RoBERTa tower. Every MSDA call's shapes are recorded, and MSDA
+    and MSDA-bwd are held to their plain versions there (3.2e-2, 1.6e-2 in
+    bf16); the requests' NMS keep masks must equal the plain version's.
+    Returns ({path: launches}, {kernel: checks})."""
+    import torch
+    from uninext_tpu_torch.config import image_joint_convnext_large, video_joint_convnext_large
+    from uninext_tpu_torch.models import postprocess
+    from uninext_tpu_torch.ops import nms
+    t_phase = time.perf_counter()
+    img, vid = image_joint_convnext_large(), video_joint_convnext_large()
+    launches, checks = {}, {}
+    calls, unrecord = _recording_msda()
+    nms_calls, unrecord_nms = _recording_nms(postprocess)
+    try:
+        serving = phase_serving(img, "image_joint_convnext_large",
+                                ("detection", "instseg", "rec"), profile)
+        launches.update({f"convnext_{task}": n for task, n in serving.items()})
+        unrecord_nms()
+        launches["convnext_training"] = phase_training(img, "image_joint_convnext_large",
+                                                       CONVNEXT_TRAIN_STEPS, profile)
+        launches["convnext_reference"] = _convnext_reference()
+        _convnext_handoff()
+        sot_launches, sot_rec = phase_sot_serving(vid, "video_joint_convnext_large")
+        launches.update({f"convnext_{path}": n for path, n in sot_launches.items()})
+        launches["convnext_sot_training"], sot_checks = phase_sot_training(
+            vid, SOT_TRAIN_STEPS, "video_joint_convnext_large")
+        launches["roberta_rec"] = _roberta_request()
+    finally:
+        unrecord()
+        unrecord_nms()
+    checks["ms_deform_attn_fwd"] = {f"convnext_{k}": v for k, v in sot_rec.items()}
+    for name, r in _check_msda_calls(calls, label="convnext").items():
+        checks.setdefault(name, {}).update({f"convnext_{k}": v for k, v in r.items()})
+        checks[name].update({f"convnext_sot_training_{k}": v
+                             for k, v in sot_checks[name].items()})
+    # the requests' NMS, as given and with the upper half of the scores valid
+    kept = []
+    for boxes, scores, classes, thr, valid in nms_calls:
+        for v in (valid, (scores > scores.median()).contiguous()):
+            got = nms.batched_nms(boxes, scores, classes, thr, valid=v)
+            if not torch.equal(got, nms.batched_nms_plain(boxes, scores, classes, thr,
+                                                          valid=v)):
+                raise AssertionError("ConvNeXt request: NMS keep mask differs from the "
+                                     "plain version")
+            kept.append(int(got.sum()))
+    if len(nms_calls) != 2 * N_REQUESTS:
+        raise AssertionError(f"ConvNeXt requests: {len(nms_calls)} NMS calls recorded, "
+                             f"not {2 * N_REQUESTS}")
+    checks["nms"] = {"convnext_calls": len(nms_calls), "convnext_kept": kept}
+    print(f"[convnext] NMS keep masks of the {len(nms_calls)} detection and instance-"
+          f"segmentation requests identical to the plain version's (as given; with the upper "
+          f"half of the scores valid), kept {kept}; MSDA at {len(calls)} recorded shapes held "
+          f"to plain; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -3465,6 +3682,9 @@ def main():
     rec["nms"].update(recipe_nms)
     for name, r in recipe_checks.items():
         rec[name].update({f"recipe_{k}": v for k, v in r.items()})
+    convnext, convnext_checks = phase_convnext(profile)
+    for name, r in convnext_checks.items():
+        rec[name].update(r)
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
     a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in vith_rec.items()
@@ -3488,6 +3708,7 @@ def main():
                    "sot_loop": sot_loop[name],
                    **{path: n[name] for path, n in parallel.items()},
                    **{path: n[name] for path, n in recipe.items()},
+                   **{path: n[name] for path, n in convnext.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -3508,7 +3729,7 @@ def main():
                            if k in r},
                         **{k: v for k, v in r.items()
                            if k.startswith(("vis_", "mot_", "video_", "sot_", "vos_",
-                                            "rvos_", "recipe_", "k2_", "k4_",
+                                            "rvos_", "recipe_", "convnext_", "k2_", "k4_",
                                             "launches_per_rank",
                                             "peak_gib_per_rank", "step_rel_err", "nccl_"))}})
         k = kernels[-1]

@@ -12,6 +12,8 @@ import uninext_tpu_torch.config as tcfg
 
 @pytest.mark.parametrize("preset", ["image_joint_r50", "image_joint_vit_huge",
                                     "video_joint_r50", "video_joint_vit_huge",
+                                    "image_joint_convnext_large",
+                                    "video_joint_convnext_large", "roberta_base_language",
                                     "tiny_test_config",
                                     "tiny_video_test_config", "UninextConfig"])
 def test_preset_matches_jax_field_by_field(preset):
@@ -139,3 +141,24 @@ def test_recipe_fixture_configs_match_the_jax_tools(tool):
         sys.path.remove(tools)
     for got, want in pairs:
         assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_convnext_fixture_config_matches_the_jax_tool():
+    """`uninext_tpu_torch/tools/convnext_check.py:tiny_convnext_cfg` is
+    `tools/convnext_check.py:tiny_convnext_cfg` (the path that file puts on
+    `sys.path` is taken off again)."""
+    import importlib.util
+    import os
+    import sys
+    from uninext_tpu_torch.tools import convnext_check
+    path = list(sys.path)
+    try:
+        spec = importlib.util.spec_from_file_location(
+            "jax_convnext_check", os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), "tools", "convnext_check.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        want = mod.tiny_convnext_cfg(1200)
+    finally:
+        sys.path[:] = path
+    assert dataclasses.asdict(convnext_check.tiny_convnext_cfg(1200)) == dataclasses.asdict(want)

@@ -57,7 +57,15 @@ def trees():
 
 
 def test_load_stage_weights_matches_jax_through_the_bridge(trees):
-    img_cfg, vid_cfg, img_tree, vid_tree = trees
+    check_handoff_through_the_bridge(*trees, "stem.conv1.weight")
+
+
+def check_handoff_through_the_bridge(img_cfg, vid_cfg, img_tree, vid_tree, stem):
+    """The port's `load_stage_weights` on the bridged trees against JAX's
+    carried through `load_jax_params`, the reports related through the
+    bridge's leaf mapping, and the template backbone's stem convolution
+    (`stem`, under the backbones' prefix) the image one with a zero 4th
+    channel."""
     jout, jrep = jax_load_stage_weights(vid_tree["params"], img_tree["params"],
                                         verbose=False)
     img = build_model(img_cfg, "cpu", seed=0)
@@ -87,9 +95,10 @@ def test_load_stage_weights_matches_jax_through_the_bridge(trees):
     template = [k for k in sd if k.startswith(TEMPLATE_BACKBONE)]
     assert rep["remapped_template"] == len(template)
     assert len(leaves(template)) == jrep["remapped_template"]
-    conv1 = sd[TEMPLATE_BACKBONE + "stem.conv1.weight"]
-    assert torch.equal(conv1[:, :3], sd[BACKBONE + "stem.conv1.weight"])
+    conv1 = sd[TEMPLATE_BACKBONE + stem]
+    assert torch.equal(conv1[:, :3], sd[BACKBONE + stem])
     assert not conv1[:, 3].any()
+    return rep
 
 
 # ---- tests/test_stage_handoff.py's cases on the port's names ---------------------

@@ -22,8 +22,8 @@ import pytest
 import torch
 
 from tests.torch_port_common import (bridge_sources, boxinst_targets, detection_inputs,
-                                     detection_targets, dn_noise, jax_loss_and_grads,
-                                     jax_train_init, perturb)
+                                     detection_targets, dn_noise, init_statistics_match,
+                                     jax_loss_and_grads, jax_train_init, perturb)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
@@ -213,6 +213,26 @@ def test_r50_random_init_matches_jax_distributions(initial):
             assert 0.8 < ratio < 1.25, f"{name}: std {g.std():.4g} against {want.std():.4g}"
             compared += 1
     assert compared > 100
+
+
+def test_r50_random_init_matches_jax_leaf_by_leaf(initial):
+    """ROADMAP §3.27: the port's random init (what BoxInst's stage 1 of
+    `tools/pipeline_check.py` starts from) against JAX's `init` leaf by
+    leaf through `convert_checkpoint`'s names: means, standard deviations
+    and extremes (`init_statistics_match`), the mask branch's leaves
+    (`controller`, `mask_head`) and the mask features' inputs (the
+    encoder, the input projections) among them. The fixture's tree is the
+    BoxInst training path's too: flax draws a leaf from the key and the
+    module that makes it, and both paths make the same modules (the
+    BoxInst config only changes the losses)."""
+    cfg, _, _, _, params = initial
+    sd = build_model(cfg, "cpu", seed=0).state_dict()
+    got, report = convert_checkpoint(sd, copy.deepcopy(jax.tree.map(np.zeros_like, params)))
+    assert report["missing_target"] == [] and report["unused_source"] == []
+    compared, extremes = init_statistics_match(got, params)
+    heads = [n for n in compared if "controller" in n or "mask_head" in n]
+    assert len(compared) > 100 and len(extremes) > 40 and len(heads) >= 6
+    assert any("input_proj" in n for n in extremes)
 
 
 def test_r50_optimizer_groups_match_classify_param(pair):

@@ -103,8 +103,10 @@ def test_port_runs_without_jax():
     family (`VISDriver` over 2 frames, a two-frame train step, the VIS
     fixture tool's loop) and SOT (a template encode and a SOT frame through
     `SOTDriver`, a SOT train step), the C++ COCO matcher (built in the
-    child if no earlier run left it), and the parallel layer (one train step
-    on a mesh of one rank), at a tiny size, and importing the training
+    child if no earlier run left it), the parallel layer (one train step
+    on a mesh of one rank), ConvNeXt (the fixture tool's loop, a template
+    encode through a 4-channel ConvNeXt) and RoBERTa, at a tiny size, and
+    importing the training
     recipe's modules (BoxInst's targets, the recipe's three fixture tools),
     leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
@@ -274,6 +276,28 @@ def test_port_runs_without_jax():
             "targets": targets}, mesh))
         assert torch.isfinite(metrics["total_loss"]) and state.mesh is mesh
         dist.destroy_process_group()
+        # ConvNeXt: the fixture tool's 2 steps and evaluation (the small
+        # ConvNeXt model through Trainer and DetectionEvaluator), a template
+        # encode through a 4-channel ConvNeXt, and RoBERTa's ids
+        from uninext_tpu_torch.config import roberta_base_language
+        from uninext_tpu_torch.models.bert import BertModel
+        from uninext_tpu_torch.tools import convnext_check
+        with tempfile.TemporaryDirectory() as root:
+            res = convnext_check.main(["--steps", "2", "--n-train", "2", "--n-val", "1",
+                                       "--device", "cpu", "--out", root + "/cx.json"])
+        assert res["train"]["det_ap"] is not None and "serve" not in res
+        ccfg = dataclasses.replace(convnext_check.tiny_convnext_cfg(2), sot=dataclasses.replace(
+            scfg.sot, extra_backbone_for_template=True, feature_fusion=True))
+        model = build_model(ccfg, "cpu", seed=7, template=True)
+        with torch.inference_mode():
+            lang = model.encode_template(torch.zeros(1, 64, 64, 4))
+        assert lang["hidden"].shape == (1, 64, 64) and torch.isfinite(lang["hidden"]).all()
+        rcfg = dataclasses.replace(roberta_base_language(), hidden_dim=32, num_layers=1,
+                                   num_heads=2, intermediate_dim=64)
+        with torch.inference_mode():
+            enc = BertModel(rcfg)(torch.tensor([[0, 5, 7, 2, 1, 1]]),
+                                  torch.tensor([[1, 1, 1, 1, 0, 0]]))
+        assert enc["hidden"].shape == (1, 6, 32)
         # the training recipe's modules (their 2-step runs are tests below)
         import uninext_tpu_torch.data.boxinst
         import uninext_tpu_torch.tools.joint_check
@@ -322,6 +346,9 @@ def test_pipeline_check_tool_runs(tmp_path):
                                                    "3_video_joint"))
     assert s1["steps"] == s2["steps"] == s3["steps"] == 2
     assert s1["mask_ap_vs_real_gt_masks"] is not None and s2["det_ap"] is not None
+    probe = s1["mask_logit_probe"]          # stage 1's mask logits at step 1 (of 1, 10, ...)
+    assert [r["step"] for r in probe] == [1] and np.isfinite(probe[0]["mean_mask_logit"])
+    assert probe[0]["loss_prj"] > 0
     assert set(s2["batches_read_per_task"]) == {"detection", "grounding"}
     assert set(s3["batches_read_per_task"]) == {"detection", "sot"}
     h = s3["handoff"]

@@ -176,6 +176,43 @@ def jax_train_init(jax_model, inputs, targets, seed=0):
     return jax.tree.map(np.asarray, params)
 
 
+def init_statistics_match(got, want, min_extremes=4096):
+    """Two trees of one layout (numpy leaves), `got` the port's random
+    init carried over by the bridge's names and `want` JAX's `init`, held
+    leaf by leaf: constant leaves equal; every other leaf of 16 or more
+    entries has its mean within 6 standard errors of JAX's, its standard
+    deviation within 0.8-1.25x (or 4 / sqrt(n) in the log for smaller
+    leaves, where two sample deviations differ by about 1 / sqrt(n)); and
+    with `min_extremes` or more entries its largest magnitude within
+    0.85-1.18x of JAX's, which tells flax's truncated lecun-normal (no
+    value beyond 2.27 standard deviations) from a normal. Returns the
+    names of the leaves compared and of those whose extremes were."""
+    import jax
+
+    got_leaves = dict(jax.tree_util.tree_leaves_with_path(got))
+    compared, extremes = [], []
+    for path, w in jax.tree_util.tree_leaves_with_path(want):
+        name = jax.tree_util.keystr(path)
+        g, w = np.asarray(got_leaves[path], np.float64), np.asarray(w, np.float64)
+        if np.ptp(w) == 0:
+            np.testing.assert_array_equal(g, w, err_msg=name)
+            continue
+        if w.size < 16:
+            continue
+        n = w.size
+        assert abs(g.mean() - w.mean()) <= 6 * np.sqrt((g.var() + w.var()) / n) + 1e-7, \
+            f"{name}: mean {g.mean():.4g} against {w.mean():.4g}"
+        assert abs(np.log(g.std() / w.std())) < max(np.log(1.25), 4 / np.sqrt(n)), \
+            f"{name}: std {g.std():.4g} against {w.std():.4g}"
+        if n >= min_extremes:
+            top = np.abs(g).max() / np.abs(w).max()
+            assert 0.85 < top < 1.18, \
+                f"{name}: largest |x| {np.abs(g).max():.4g} against {np.abs(w).max():.4g}"
+            extremes.append(name)
+        compared.append(name)
+    return compared, extremes
+
+
 def dn_noise(key, B, single_pad, groups=5):
     """(sign, part) as torch tensors, drawn from the JAX key `key` as
     `uninext_tpu/models/detr.py:prepare_dn_static` draws them."""

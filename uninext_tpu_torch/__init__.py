@@ -5,12 +5,11 @@ This package imports `torch` and never `jax`, `flax` or `uninext_tpu`: it
 keeps its own copies of the configuration (`config`) and of the host data
 helpers (`data.tokenizer`, `data.prompts`, `data.coco_categories`).
 
-Ported so far, with the ViT-H backbone (`config.image_joint_vit_huge()`):
-the detection serving path (ViT -> input projections -> BERT prompt ->
-VLFuse -> 6 deformable encoder layers -> two-stage top-k -> 6 decoder
-layers -> heads -> `postprocess_detection`) and its training step (DN
-queries, matching, losses, backward, clip, per-group AdamW;
-`engine/train.py`), and the two MSDA lab tools (`tools/`). Its
+Ported: the R50, ConvNeXt-L and ViT-H backbones, the BERT and RoBERTa
+language towers, the image tasks' serving paths (detection, instance
+masks, REC/RES) and training (`engine/train.py`, `engine/trainer.py`,
+BoxInst, the stage hand-off), the video and annotation-prompt families
+(VIS, MOT/MOTS, SOT, VOS, R-VOS) and the lab tools (`tools/`). Its
 hand-written Hopper kernels live in `csrc/` and are bound in `ops/` and
 `models/vit.py`. Data and tensor parallelism on `torch.distributed` live
 in `parallel/`.

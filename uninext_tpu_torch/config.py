@@ -70,6 +70,13 @@ class LanguageConfig:
     parallel_det: bool = False
 
 
+def roberta_base_language() -> "LanguageConfig":
+    """roberta-base variant (bert_model.py:21-26)."""
+    return LanguageConfig(model_type="roberta-base", vocab_size=50265,
+                          type_vocab_size=1, max_position_embeddings=514,
+                          layer_norm_eps=1e-5, pad_token_id=1)
+
+
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     # reference: MODEL.DDETRS.* (uninext/config.py:156-183, image_joint_r50.yaml)
@@ -324,6 +331,26 @@ def video_joint_r50() -> UninextConfig:
         language=dataclasses.replace(base.language, freeze=True),
         sot=dataclasses.replace(base.sot, extra_backbone_for_template=True,
                                 feature_fusion=True))
+
+
+def image_joint_convnext_large() -> UninextConfig:
+    """ConvNeXt-Large flagship variant (reference configs/*convnext*)."""
+    return dataclasses.replace(
+        image_joint_r50(),
+        backbone=BackboneConfig(name="convnext_large",
+                                out_channels=(384, 768, 1536),
+                                drop_path_rate=0.7))
+
+
+def video_joint_convnext_large() -> UninextConfig:
+    """ConvNeXt-Large stage-3 variant (reference
+    configs/video_joint_convnext_large.yaml: _BASE_ video_joint_r50 +
+    D2ConvNeXt, init from image_joint_convnext_large model_final_4c)."""
+    return dataclasses.replace(
+        video_joint_r50(),
+        backbone=BackboneConfig(name="convnext_large",
+                                out_channels=(384, 768, 1536),
+                                drop_path_rate=0.7))
 
 
 def image_joint_vit_huge() -> UninextConfig:

@@ -9,8 +9,10 @@ Layouts turn around as there: Dense kernels (in, out) become Linear weights
 norms' `scale` becomes `weight`; the decoder self-attention's q/k/v
 projections become one `in_proj_weight`.
 
-The backbone is the one the tree holds: `backbone/stem_conv` marks a
-ResNet, whose FrozenBN `scale`/`bias`/`mean`/`var` become detectron2's
+The backbone is the one the tree holds (`backbone_filler`):
+`backbone/stem_norm` marks a ConvNeXt (D2ConvNeXt's names, the layer scale
+`gamma` a `gamma.weight`), `backbone/stem_conv` without it a ResNet, whose
+FrozenBN `scale`/`bias`/`mean`/`var` become detectron2's
 `weight`/`bias`/`running_mean`/`running_var`; else it is a ViT. The mask
 head (`controller`, `mask_head`) is filled when the tree has it.
 
@@ -133,6 +135,40 @@ def fill_resnet(sd, key, lv, path):
                     _conv(sd, f"{bk}{conv}.", lv, _j(bp, conv))
                     _frozen_bn(sd, f"{bk}{conv}.norm.", lv, _j(bp, bn))
             b += 1
+
+
+def fill_convnext(sd, key, lv, path):
+    """D2ConvNeXt: downsample_layers.0.{0,1} (stem conv, stem norm),
+    downsample_layers.{i}.{0,1} (norm, conv), stages.{s}.{b}.{dwconv,norm,
+    pwconv1,pwconv2,gamma}, norm{1,2,3} (the out norms of res3-res5). The
+    depthwise kernel is (7, 7, 1, C) in JAX, (C, 1, 7, 7) here."""
+    _conv(sd, key + "downsample_layers.0.0.", lv, _j(path, "stem_conv"))
+    _norm(sd, key + "downsample_layers.0.1.", lv, _j(path, "stem_norm"))
+    for i in range(1, 4):
+        _norm(sd, f"{key}downsample_layers.{i}.0.", lv, _j(path, f"down_norm_{i}"))
+        _conv(sd, f"{key}downsample_layers.{i}.1.", lv, _j(path, f"down_conv_{i}"))
+    for s in range(4):
+        b = 0
+        while lv.has(_j(path, f"stage{s}_block{b}")):
+            bp, bk = _j(path, f"stage{s}_block{b}"), f"{key}stages.{s}.{b}."
+            _conv(sd, bk + "dwconv.", lv, _j(bp, "dwconv"))
+            _norm(sd, bk + "norm.", lv, _j(bp, "norm"))
+            _dense(sd, bk + "pwconv1.", lv, _j(bp, "pwconv1"))
+            _dense(sd, bk + "pwconv2.", lv, _j(bp, "pwconv2"))
+            sd[bk + "gamma.weight"] = lv.take(_j(bp, "gamma"))
+            b += 1
+    for i in range(1, 4):
+        _norm(sd, f"{key}norm{i}.", lv, _j(path, f"out_norm_res{i + 2}"))
+
+
+def backbone_filler(lv, path) -> Callable:
+    """The fill function of the backbone family a tree holds at `path`:
+    ConvNeXt (`stem_norm`), detectron2's ResNet (`stem_conv` with a frozen
+    batch norm) or D2ViT. The model a tree is loaded into was built from a
+    config naming the same family, which the strict load checks."""
+    if lv.has(_j(path, "stem_norm")):
+        return fill_convnext
+    return fill_resnet if lv.has(_j(path, "stem_conv")) else fill_vit
 
 
 def fill_vit(sd, key, lv, path):
@@ -299,7 +335,7 @@ def fill_reid(sd, key, lv, path):
 TEMPLATE_BRANCH = ("template_backbone", "sot_fuser", "adjust_layer")
 
 
-def fill_template(sd, key, lv, path, fill_backbone=fill_resnet):
+def fill_template(sd, key, lv, path, fill_backbone):
     """The template branch as the tree holds it: `template_backbone` (filled
     by `fill_backbone`, the main backbone's family), the fuser's
     `sot_fuser/refine_{i}`, and `adjust_layer`."""
@@ -317,7 +353,7 @@ def fill_model(sd, key, lv, path):
     """The whole detection model (`UninextDETR` of the JAX package), with
     the backbone the tree holds and, if it has them, the mask head, the
     reid head and the SOT/VOS template branch."""
-    fill_backbone = fill_resnet if lv.has(_j(path, "backbone/stem_conv")) else fill_vit
+    fill_backbone = backbone_filler(lv, _j(path, "backbone"))
     if any(lv.has(_j(path, n)) for n in TEMPLATE_BRANCH):
         fill_template(sd, key, lv, path, fill_backbone)
     fill_backbone(sd, key + ROOT + "backbone.0.backbone.", lv, _j(path, "backbone"))
@@ -362,6 +398,36 @@ def _resnet_leaf(port_key: str):
     return f"{'template_' if root == 'ref_backbone' else ''}backbone/{module}/{leaf}"
 
 
+_CONVNEXT_KEY = re.compile(r"detr\.detr\.(backbone|ref_backbone)\.0\.backbone\.(?:"
+                           r"downsample_layers\.(\d)\.(\d)|stages\.(\d)\.(\d+)\.(\w+)|"
+                           r"norm(\d))\.(weight|bias)")
+
+
+def _convnext_leaf(port_key: str):
+    """The JAX leaf of a ConvNeXt parameter, e.g. `backbone/stem_norm/scale`
+    for `detr.detr.backbone.0.backbone.downsample_layers.0.1.weight`,
+    `backbone/stage2_block5/gamma` for `...stages.2.5.gamma.weight`, or
+    under `template_backbone/` for the template backbone's; None for any
+    other key."""
+    m = _CONVNEXT_KEY.fullmatch(port_key)
+    if m is None:
+        return None
+    root, down, pos, stage, block, part, norm, leaf = m.groups()
+    prefix = f"{'template_' if root == 'ref_backbone' else ''}backbone/"
+    if down is not None:            # the stem is (conv, norm), the others (norm, conv)
+        is_norm = (down == "0") == (pos == "1")
+        kind = "norm" if is_norm else "conv"
+        module = f"stem_{kind}" if down == "0" else f"down_{kind}_{down}"
+    elif stage is not None:
+        if part == "gamma":         # a parameter of the block itself
+            return f"{prefix}stage{stage}_block{block}/gamma"
+        module, is_norm = f"stage{stage}_block{block}/{part}", part == "norm"
+    else:
+        module, is_norm = f"out_norm_res{int(norm) + 2}", True
+    name = "bias" if leaf == "bias" else "scale" if is_norm else "kernel"
+    return f"{prefix}{module}/{name}"
+
+
 # port-key patterns -> the JAX module each is filled from (by `fill_model`
 # and the fill functions it calls); the rest of the key keeps the port's
 # names. First match wins.
@@ -396,11 +462,12 @@ def jax_module_path(port_key: str) -> str:
     e.g. `transformer/vl_layer_0/attn/v_proj/weight` for
     `detr.detr.transformer.encoder.vl_layers.0.b_attn.attn.v_proj.weight`
     (module names as the JAX tree's, the leaf as the port's), and the JAX
-    leaf itself for the ResNets' (`_resnet_leaf`): the optimizer's
+    leaf itself for the ResNets' and ConvNeXts' (`_resnet_leaf`,
+    `_convnext_leaf`): the optimizer's
     `classify_param` keys on `/mean`, `/var`, `/stem` and `res2_block`, and
     puts `template_backbone/*` in its backbone and frozen groups as the
     main backbone's, `sot_fuser` and `adjust_layer` in "base"."""
-    leaf = _resnet_leaf(port_key)
+    leaf = _resnet_leaf(port_key) or _convnext_leaf(port_key)
     if leaf is not None:
         return leaf
     for pattern, repl in _MODULE_PATHS:

@@ -18,6 +18,9 @@ differentiates them too. The FrozenBN scale and bias of res3-res5 fall in
 the backbone group and train, as in the JAX package. Adam's eps sits outside the square root. The clip is optax's: the
 gradients are scaled by grad_clip / norm when the global norm is at least
 grad_clip, with nothing added to the norm (`clip_grad_norm_` adds 1e-6).
+The norm is summed in fp64, so that it stays finite where optax's fp32 sum
+of squares overflows (a gradient above ~1.8e19: ConvNeXt from scratch on
+zero-padded images, ROADMAP §3.29); below that the two agree to rounding.
 Updates run as `torch._foreach_*` ops per group, in place.
 
 With `grad_accum_steps` k > 1 the optimizer follows `optax.MultiSteps`:
@@ -146,15 +149,17 @@ class AdamW:
                  for p in all_params]
         if self.accum > 1:
             torch._foreach_div_(grads, float(self.accum))
-        norms = torch._foreach_norm(grads, 2.0)
+        # in fp64: a gradient above ~1.8e19 overflows optax's fp32 norm to inf
+        # (its clip then zeroes the step; ROADMAP §3.29)
+        norms = torch._foreach_norm(grads, 2.0, dtype=torch.float64)
         group = None if self.mesh is None else self.mesh.model_group
         if group is None:
             norm = torch.linalg.vector_norm(torch.stack(norms)).float()
         else:
             cut = [getattr(p, "tp_kind", "") == "sharded" for p in all_params]
-            sq = lambda ns: torch.stack(ns).float().square().sum()
+            sq = lambda ns: torch.stack(ns).square().sum()
             norm = (comm.all_reduce(sq([n for n, c in zip(norms, cut) if c]), group)
-                    + sq([n for n, c in zip(norms, cut) if not c])).sqrt()
+                    + sq([n for n, c in zip(norms, cut) if not c])).sqrt().float()
         # optax's select, on the device: below the limit g / 1 * 1 == g exactly
         keep = norm < self.cfg.grad_clip
         one = torch.ones_like(norm)

@@ -1,6 +1,12 @@
-"""BERT text encoder (bert-base architecture), mirroring
-`uninext_tpu/models/bert.py`, with the HF BertModel parameter names
-(embeddings.*, encoder.layer.{i}.attention.self.*, ...).
+"""BERT text encoder (the bert-base and roberta-base architectures),
+mirroring `uninext_tpu/models/bert.py`, with the HF BertModel parameter
+names (embeddings.*, encoder.layer.{i}.attention.self.*, ...).
+
+RoBERTa (`config.roberta_base_language()`) is the same encoder with its own
+sizes (one token type, 514 positions, LayerNorm eps 1e-5) and position ids
+taken from the token ids: padding (`pad_token_id`, 1) stays at position
+`pad_token_id`, the i-th other token is at `pad_token_id + i`, whatever
+the attention mask says. No tokenizer comes with it: callers pass ids.
 
 The attention scores carry the reference's bf16-stability clamp at
 +/-50000 (`uninext_tpu/models/bert.py:37`)."""
@@ -106,8 +112,10 @@ class BertModel(nn.Module):
 
     def __init__(self, c: LanguageConfig, dtype=torch.float32):
         super().__init__()
-        if c.model_type != "bert-base-uncased":
-            raise NotImplementedError(f"language model {c.model_type}")
+        if c.model_type not in ("bert-base-uncased", "roberta-base"):
+            raise ValueError(f"unknown language model {c.model_type!r}")
+        self.roberta = c.model_type == "roberta-base"
+        self.pad_token_id = c.pad_token_id
         self.compute_dtype = dtype
         self.embeddings = _Embeddings(c)
         self.encoder = _Encoder(c, dtype)
@@ -116,7 +124,11 @@ class BertModel(nn.Module):
                 ) -> Dict[str, torch.Tensor]:
         B, L = input_ids.shape
         e = self.embeddings
-        pos_ids = torch.arange(L, device=input_ids.device)[None].expand(B, L)
+        if self.roberta:
+            nonpad = (input_ids != self.pad_token_id).long()
+            pos_ids = torch.cumsum(nonpad, 1) * nonpad + self.pad_token_id
+        else:
+            pos_ids = torch.arange(L, device=input_ids.device)[None].expand(B, L)
         x = e.LayerNorm(e.word_embeddings(input_ids)
                         + e.position_embeddings(pos_ids)
                         + e.token_type_embeddings(torch.zeros_like(input_ids)))

@@ -1,11 +1,12 @@
-"""UninextDETR, mirroring `uninext_tpu/models/detr.py`, with the ResNet-50
-and ViT-H backbones: inference for detection and grounding (`forward`), the
-masks of selected queries (`predict_masks`), the reid embeddings of the
-video configs (`compute_reid`, the deformable reid head), the detection
-and grounding training losses (`forward_train`) and the two-frame (key,
-ref) video training losses (`forward_video_train`), and, with the SOT/VOS
-template branch (`template=True`), the template prompt
-(`encode_template`) and the SOT training losses (`forward_sot_train`).
+"""UninextDETR, mirroring `uninext_tpu/models/detr.py`, with the ResNet-50,
+ConvNeXt-L and ViT-H backbones: inference for detection and grounding
+(`forward`), the masks of selected queries (`predict_masks`), the reid
+embeddings of the video configs (`compute_reid`, the deformable reid
+head), the detection and grounding training losses (`forward_train`) and
+the two-frame (key, ref) video training losses (`forward_video_train`),
+and, with the SOT/VOS template branch (`template=True`), the template
+prompt (`encode_template`) and the SOT training losses
+(`forward_sot_train`).
 
     (images, img_mask, prompt tokens) -> backbone -> input projections ->
     BERT prompt -> VL-fused deformable transformer (two-stage) ->
@@ -33,7 +34,8 @@ and padded to a multiple of 32; `img_mask` (B, H, W) True for padding.
 
 Module nesting follows the reference UNINEXT checkpoint, so
 `state_dict()` keys are the reference keys:
-`detr.detr.backbone.0.backbone.*` (detectron2's ResNet or D2ViT),
+`detr.detr.backbone.0.backbone.*` (detectron2's ResNet, D2ConvNeXt or
+D2ViT),
 `detr.detr.input_proj.*`, `detr.detr.transformer.*`,
 `detr.detr.{class_embed,bbox_embed,iou_head}.*`, `detr.controller.*` and
 `detr.mask_head.*` (the mask head), `detr.resizer.*` (the DN label encoder),
@@ -52,8 +54,6 @@ parameters only where a path runs.
 Random numbers of training (DN box noise, drop-path masks) come from an
 explicit `torch.Generator`, or the DN noise from the caller; the JAX
 package's `jax.random` stream is not reproduced.
-
-Not ported yet: the ConvNeXt backbone.
 """
 from __future__ import annotations
 
@@ -72,8 +72,10 @@ from ..utils import box_ops
 from ..utils.misc import agg_lang_feat, inverse_sigmoid
 from . import criterion as crit
 from .bert import BertModel
+from .convnext import ConvNeXt
 from .heads import StillClassifier, VLAlign
-from .layers import MLP, Conv2d, FeatureResizer, GroupNorm, Linear, get_sine_pos_embed
+from .layers import (MLP, Conv2d, FeatureResizer, GroupNorm, Linear, get_sine_pos_embed,
+                     lecun_normal_)
 from .mask_head import MaskHeadSmallConv, dynamic_mask_forward, num_gen_params
 from .matcher import hungarian_match, ota_cost_and_iou, simota_match, vl_cost_matrix
 from .position_encoding import position_embedding_sine
@@ -186,6 +188,10 @@ def build_trunk(cfg: UninextConfig, in_channels: int, dtype: torch.dtype) -> nn.
     b = cfg.backbone
     if b.name == "resnet50":
         return ResNet(in_channels=in_channels, dtype=dtype)
+    if b.name == "convnext_large":
+        return ConvNeXt(depths=b.convnext_depths, dims=b.convnext_dims,
+                        drop_path_rate=b.drop_path_rate, in_channels=in_channels,
+                        dtype=dtype)
     if b.name == "vit_huge":
         return ViT(patch_size=b.vit_patch_size, embed_dim=b.vit_embed_dim,
                    depth=b.vit_depth, num_heads=b.vit_num_heads,
@@ -193,7 +199,7 @@ def build_trunk(cfg: UninextConfig, in_channels: int, dtype: torch.dtype) -> nn.
                    in_channels=in_channels, dtype=dtype,
                    drop_path_rate=b.vit_drop_path_rate,
                    use_checkpoint=b.vit_use_checkpoint)
-    raise NotImplementedError(f"backbone {b.name} is not ported yet")
+    raise ValueError(f"unknown backbone {b.name!r}")
 
 
 class DeformableDETR(nn.Module):
@@ -323,8 +329,8 @@ class UninextDETR(nn.Module):
                 generator: Optional[torch.Generator] = None, mesh=None
                 ) -> List[torch.Tensor]:
         """`trunk` on images, then the input projections: per-level (B, h,
-        w, C) fp32. `train` turns on a ViT's drop-path and checkpointing
-        (the frozen-BN ResNet has no train mode)."""
+        w, C) fp32. `train` turns on ConvNeXt's and ViT's drop-path and
+        ViT's checkpointing (the frozen-BN ResNet has no train mode)."""
         c = self.cfg
         if c.backbone.name == "resnet50":
             feats = trunk(images)
@@ -826,16 +832,18 @@ class UninextDETR(nn.Module):
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """Random weights from `generator`, with the JAX package's initialisers:
-    lecun-normal linear and conv weights, zero biases, unit norms, embedding
-    rows of std 1/sqrt(dim), then each module's own `init_weights` (prior
-    biases, zeroed box deltas, the MSDA offset ring, layer scales, ...)."""
+    lecun-normal linear and conv weights (flax's truncated normal,
+    `layers.lecun_normal_`), zero biases, unit norms, embedding rows of std
+    1/sqrt(dim) (flax's `Embed`: an untruncated normal), then each module's
+    own `init_weights` (prior biases, zeroed box deltas, the MSDA offset
+    ring, layer scales, ...)."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
                 w = mod.weight
                 fan_in = w.shape[0] if isinstance(mod, nn.ConvTranspose2d) \
                     else w[0].numel()
-                w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                lecun_normal_(w, fan_in, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, (nn.LayerNorm, nn.GroupNorm)):

@@ -21,6 +21,24 @@ from ..parallel.comm import reduce_from_model
 from ..utils.misc import host_constant
 
 
+def trunc_normal_(w: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """`w` from a normal of scale `std` truncated at +/-2 `std` (JAX's
+    `random.truncated_normal(-2, 2) * std`), drawn by inverting the CDF of
+    a uniform draw from `generator`."""
+    lo = 0.5 * math.erfc(math.sqrt(2.0))           # the normal's CDF at -2
+    with torch.no_grad():
+        w.uniform_(2 * lo - 1, 1 - 2 * lo, generator=generator)
+        w.erfinv_().mul_(std * math.sqrt(2.0)).clamp_(-2 * std, 2 * std)
+    return w
+
+
+def lecun_normal_(w: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's default kernel initialiser `lecun_normal`: the truncated
+    normal of `trunc_normal_`, scaled so that its standard deviation is
+    1 / sqrt(fan_in) (no value beyond 2.2737 of it)."""
+    return trunc_normal_(w, 1.0 / math.sqrt(fan_in) / 0.87962566103423978, generator)
+
+
 class Linear(nn.Linear):
     """nn.Linear computing in `dtype` (flax Dense with `dtype`). A
     row-parallel shard (`reduce_group` set by `parallel/sharding.py:
@@ -192,9 +210,7 @@ class MultiHeadAttention(nn.Module):
 
     def init_weights(self, generator: torch.Generator) -> None:
         d = self.in_proj_weight.shape[1]
-        with torch.no_grad():
-            self.in_proj_weight.normal_(0.0, 1.0 / math.sqrt(d),
-                                        generator=generator)
+        lecun_normal_(self.in_proj_weight, d, generator)
         nn.init.zeros_(self.in_proj_bias)
 
     def forward(self, q, k, v, attn_mask: Optional[torch.Tensor] = None):

@@ -44,7 +44,7 @@ from ..ops import _build
 from ..parallel.comm import copy_to_model
 from ..parallel.mesh import rows_of_draw
 from ..utils.misc import checkpointed, recomputing
-from .layers import Conv2d, LayerNorm, Linear
+from .layers import Conv2d, LayerNorm, Linear, trunc_normal_
 
 
 def interp_abs_pos(pos_embed: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -625,8 +625,7 @@ class ViT(nn.Module):
                                                      2, stride=2))
 
     def init_weights(self, generator: torch.Generator) -> None:
-        with torch.no_grad():
-            self.pos_embed.normal_(0.0, 0.02, generator=generator)
+        trunc_normal_(self.pos_embed, 0.02, generator)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None, mesh=None

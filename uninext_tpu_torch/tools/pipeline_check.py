@@ -32,7 +32,11 @@ stage, as in the JAX tool. Seed s seeds the three loaders (3s, 3s + 1,
 The JSON written to `--out` holds, per seed and stage, the steps taken of
 each task, the seconds of training and evaluation, the step times, the
 peak device memory, the hand-off's report and the metrics, with the
-device's name and power limit. Runs on the card unless `--device cpu`.
+device's name and power limit; for stage 1 also `mask_logit_probe`: at
+steps 1, 10, 25, 50 and 100, `loss_prj` and the mean mask logit of the
+last decoder layer's valid instances, over all their pixels and inside
+their boxes (`MaskLogitProbe`; ROADMAP §3.27). Runs on the card unless
+`--device cpu`.
 """
 from __future__ import annotations
 
@@ -55,7 +59,9 @@ from ..data.tokenizer import BertTokenizer
 from ..data.video import VideoPairMapper, load_ytvis_json
 from ..engine.checkpoint import CheckpointManager, load_stage_weights
 from ..engine.evaluator import DetectionEvaluator, evaluate_refcoco
+from ..engine.hooks import HookBase
 from ..engine.trainer import Trainer
+from ..models import criterion
 from .ap_check import LSJ, REPO, StepLog, card
 from .evidence import build_tiny_cfg, finite, peak_gib, step_summary
 from .sot_check import eval_sot_vos
@@ -78,9 +84,10 @@ class Stage:
         self.counts = Counter()
         self.timer = StepLog()
         self.device = device
+        hooks = [self.timer] + kw.pop("extra_hooks", [])
         self.trainer = Trainer(cfg, counting(self.batches, self.counts), output_dir=out_dir,
                                has_masks=True, device=device, seed=0, log_period=100,
-                               extra_hooks=[self.timer], **kw)
+                               extra_hooks=hooks, **kw)
 
     def train(self):
         if self.device.type == "cuda":
@@ -96,6 +103,56 @@ class Stage:
                 "step_ms": step_summary(self.timer.seconds),
                 "final_total_loss": self.timer.total_loss[-1],
                 "train_peak_gib": peak_gib(self.device)}
+
+
+class MaskLogitProbe(HookBase):
+    """At PROBE_STEPS (counted from 1), the step's `loss_prj` and the mean
+    mask logit of the last decoder layer's valid instances, over all their
+    pixels and inside their gt boxes, with the share of in-box pixels
+    whose logit is positive. The logits are read by a pass-through in front
+    of `models/criterion.py:loss_masks_boxinst` (the model calls it by that
+    name, once per decoder layer, the last layer last), set while the probe
+    is entered; the sums stay on the device until the step ends."""
+
+    PROBE_STEPS = (1, 10, 25, 50, 100)
+
+    def __init__(self):
+        self.records, self.active, self.sums = [], False, None
+
+    def __enter__(self):
+        real = criterion.loss_masks_boxinst
+
+        def recording(mask_logits, box_bitmasks, color_similarity, sel_valid, *a, **kw):
+            if self.active:
+                with torch.no_grad():
+                    lg = mask_logits.detach().float()
+                    valid = sel_valid[..., None, None].expand_as(lg).float()
+                    inside = valid * (box_bitmasks > 0.5).float()
+                    self.sums = torch.stack([(lg * valid).sum(), valid.sum(),
+                                             (lg * inside).sum(), inside.sum(),
+                                             ((lg > 0).float() * inside).sum()])
+            return real(mask_logits, box_bitmasks, color_similarity, sel_valid, *a, **kw)
+
+        criterion.loss_masks_boxinst = recording
+        self._real = real
+        return self
+
+    def __exit__(self, *exc):
+        criterion.loss_masks_boxinst = self._real
+
+    def before_step(self, trainer):
+        self.active = trainer.storage.iter + 1 in self.PROBE_STEPS
+        self.sums = None
+
+    def after_step(self, trainer, metrics):
+        if not self.active or self.sums is None:
+            return
+        lg_sum, n, in_sum, n_in, pos = self.sums.tolist()
+        self.records.append({"step": trainer.storage.iter + 1,
+                             "loss_prj": float(metrics["loss_prj"]),
+                             "mean_mask_logit": lg_sum / max(n, 1.0),
+                             "mean_mask_logit_in_box": in_sum / max(n_in, 1.0),
+                             "in_box_positive_share": pos / max(n_in, 1.0)})
 
 
 def configs(steps1: int, steps2: int, steps3: int):
@@ -120,9 +177,18 @@ def stage1(fx, cfg, seed, root, device):
                               boxinst_bottom_pixels=cfg.loss.boxinst_bottom_pixels_removed,
                               **LSJ)
     out_dir = os.path.join(root, f"s1_seed{seed}")
+    probe = MaskLogitProbe()
     st = Stage(cfg, MultiDatasetLoader([(fx["s1_train"], mapper, 2)], [1.0], seed=3 * seed,
-                                       num_workers=2), out_dir, device, task="detection")
-    rec = st.train()
+                                       num_workers=2), out_dir, device, task="detection",
+               extra_hooks=[probe])
+    with probe:
+        rec = st.train()
+    rec["mask_logit_probe"] = probe.records
+    for r in probe.records:
+        print(f"[stage1] seed {seed} step {r['step']}: loss_prj {r['loss_prj']:.4f}, mean "
+              f"mask logit {r['mean_mask_logit']:.4f} (in the boxes "
+              f"{r['mean_mask_logit_in_box']:.4f}, positive there "
+              f"{r['in_box_positive_share']:.4f})", flush=True)
     tr = st.trainer
     tr.ckpt.save(tr.state.step, tr.state)       # the hand-off's file
     eval_mapper = UniDatasetMapper(cfg.data, fx["s1_cats"], tok, is_train=False,
