@@ -9,7 +9,9 @@ step, the ViT-H SOT/VOS frame step and the SOT loop to an AUC and a J&F),
 data and tensor parallelism, the three-stage training recipe (BoxInst,
 the stage hand-off, the routed image and video stages), ConvNeXt-L's
 image and video presets (serving, training, the hand-off, SOT/VOS/R-VOS
-and the SOT step) with a RoBERTa request, and the labs (`tools/`).
+and the SOT step) with a RoBERTa request, the command-line tools (training,
+evaluation, the demo, SegInW, the VOT adapter, reference checkpoints) and
+the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -192,6 +194,27 @@ nonzero):
      "convnext_sot_training", "roberta_rec"; MSDA and MSDA-bwd held to
      their plain versions at every shape the phase gave them, NMS's keep
      masks at its requests' inputs.
+  20. the command line (`phase_cli`, `uninext_tpu_torch/tools/`): each
+     tool's `main` in this process under a patched sys.argv, at full width
+     with random weights, on layouts generated in a temporary directory:
+     `image_joint_r50`'s and `video_joint_r50`'s (with the template branch)
+     state dicts written as reference `.pth` files and loaded by
+     `load_reference_checkpoint` into models of another seed (an empty
+     report; state dicts and one detection request bit-equal); `train_net`
+     from that `.pth` on mini-COCO for 4 steps (MSDA 18, MSDA-bwd 12 a step)
+     and `--eval-only --resume` (MSDA 12, NMS 1 an image; the AP JSON);
+     `eval_video` vos (DAVIS 480p, 2 objects; MSDA 12 a step and object),
+     mots (720x1280; MSDA 14, NMS 1 a frame) and sot (LaSOT 720x1280; MSDA 12
+     a frame step) with `video_joint_r50`, sot with `video_joint_vit_huge`
+     (kernel A 32 a backbone pass), each writing its official files; `demo
+     --image` (MSDA 12, NMS 1); the VOT adapter's `initialize` and 3
+     `track` calls; `eval_seginw --make-mini --steps 0 --config
+     image_joint_r50` (24 evaluated images); `python -m uninext_tpu_torch.
+     tools.analyze_sot_results` in a process of its own on the SOT files.
+     Each tool's wall time, step/frame/image median, peak memory and
+     launches (asserted), as paths "cli_*"; MSDA and MSDA-bwd held to their
+     plain versions at every shape the tools gave them, NMS's keep masks at
+     the postprocess's inputs, kernel A at the ViT-H SOT frame's 1x50x84.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -3555,6 +3578,426 @@ def phase_convnext(profile: bool):
     return launches, checks
 
 
+# ---- phase 20: the command line -------------------------------------------------
+
+CLI_TRAIN_STEPS = 4        # train_net's solver.max_iter in the CLI phase
+CLI_FRAMES = 3             # frames of each generated video layout
+
+
+def _timing(fn, log):
+    """`fn` logging each call's host ms, synchronised before and after."""
+    import torch
+
+    def timed(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def _timed_attr(owner, name, log):
+    """Time each call of `owner.name` (a module's function or a class's
+    method) into `log`. Returns the undo."""
+    real = getattr(owner, name)
+    setattr(owner, name, _timing(real, log))
+    return lambda: setattr(owner, name, real)
+
+
+def _timed_factory(owner, name, log):
+    """Time each call of the callables that the factory `owner.name` makes
+    (a frame step, a template encoder) into `log`. Returns the undo."""
+    real = getattr(owner, name)
+    setattr(owner, name, lambda *a, **k: _timing(real(*a, **k), log))
+    return lambda: setattr(owner, name, real)
+
+
+def _run_cli(name, argv):
+    """`uninext_tpu_torch.tools.<name>.main()` in this process under a
+    patched sys.argv; returns what it printed (echoed, indented)."""
+    import contextlib
+    import importlib
+    import io
+    mod = importlib.import_module(f"uninext_tpu_torch.tools.{name}")
+    saved, sys.argv = sys.argv, [name] + argv
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            mod.main()
+    finally:
+        sys.argv = saved
+        for line in out.getvalue().splitlines():
+            print(f"  | {line}")
+    return out.getvalue()
+
+
+def _cli_json(text):
+    """The indented JSON object a tool printed last."""
+    lines = text.splitlines()
+    start = max(i for i, line in enumerate(lines) if line == "{")
+    return json.loads("\n".join(lines[start:]))
+
+
+def _jpeg(path, rng, H, W, boxes=()):
+    """A JPEG of noise with flat-coloured boxes (x0, y0, x1, y1, rgb)."""
+    import numpy as np
+    from PIL import Image
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arr = (rng.rand(H, W, 3) * 255).astype(np.uint8)
+    for x0, y0, x1, y1, rgb in boxes:
+        arr[y0:y1, x0:x1] = rgb
+    Image.fromarray(arr).save(path, quality=90)
+
+
+def _cli_layouts(root):
+    """The generated layouts of the CLI phase under `root`: mini-COCO (8
+    train and 4 val images of 280x360), a DAVIS 480p video (854x480, 2
+    objects, the second from frame 1, every frame annotated), a BDD-sized
+    frame directory (720x1280), a LaSOT sequence (720x1280) and a demo
+    image (480x640)."""
+    import numpy as np
+    from PIL import Image
+    from uninext_tpu_torch.data.mini_coco import make_mini_coco
+    from uninext_tpu_torch.evaluation.davis_eval import davis_palette
+    rng = np.random.RandomState(20)
+    lay = {"coco": make_mini_coco(os.path.join(root, "coco"), n_train=8, n_val=4, seed=0),
+           "davis": os.path.join(root, "DAVIS"), "bdd": os.path.join(root, "bdd"),
+           "lasot": os.path.join(root, "lasot"), "image": os.path.join(root, "demo.jpg")}
+    seq = os.path.join(lay["lasot"], "car", "car-1")
+    gt = []
+    for fi in range(CLI_FRAMES):
+        obj1 = (100 + 10 * fi, 120, 300 + 10 * fi, 320, (200, 30, 30))
+        obj2 = (500, 150 + 8 * fi, 700, 330 + 8 * fi, (30, 200, 60))
+        _jpeg(f"{lay['davis']}/JPEGImages/480p/toyvid/{fi:05d}.jpg", rng, 480, 854,
+              (obj1, obj2))
+        ann = np.zeros((480, 854), np.uint8)
+        ann[obj1[1]:obj1[3], obj1[0]:obj1[2]] = 1
+        if fi:
+            ann[obj2[1]:obj2[3], obj2[0]:obj2[2]] = 2
+        os.makedirs(f"{lay['davis']}/Annotations/480p/toyvid", exist_ok=True)
+        img = Image.fromarray(ann, mode="P")
+        img.putpalette(davis_palette().ravel().tolist())
+        img.save(f"{lay['davis']}/Annotations/480p/toyvid/{fi:05d}.png")
+        _jpeg(f"{lay['bdd']}/vid0/{fi:07d}.jpg", rng, 720, 1280,
+              ((200 + 15 * fi, 300, 420 + 15 * fi, 520, (30, 160, 220)),
+               (800, 250 + 5 * fi, 1000, 400 + 5 * fi, (220, 200, 40))))
+        box = (300 + 20 * fi, 200, 620 + 20 * fi, 460)
+        _jpeg(f"{seq}/img/{fi + 1:08d}.jpg", rng, 720, 1280, (box + ((220, 40, 40),),))
+        gt.append(f"{box[0]},{box[1]},{box[2] - box[0]},{box[3] - box[1]}")
+    with open(os.path.join(seq, "groundtruth.txt"), "w") as f:
+        f.write("\n".join(gt) + "\n")
+    for name in ("full_occlusion.txt", "out_of_view.txt"):
+        with open(os.path.join(seq, name), "w") as f:
+            f.write(",".join("0" * CLI_FRAMES) + "\n")
+    _jpeg(lay["image"], rng, 480, 640, ((100, 80, 300, 260, (210, 40, 35)),))
+    return lay
+
+
+def _cli_round_trip(cfg, label, root, dev, template):
+    """A model of `cfg` (seed 0) written as a reference `{"model": sd}`
+    `.pth` and loaded by `load_reference_checkpoint` into a model of seed 1:
+    the report has nothing missing, mismatched or unused, the state dicts
+    are bit-equal, and one detection request (the COCO prompt; forward and
+    `postprocess_detection`) of each model gives bit-equal outputs. Returns
+    the .pth's path."""
+    import torch
+    from uninext_tpu_torch.engine.convert import load_reference_checkpoint
+    from uninext_tpu_torch.models.detr import build_model
+    from uninext_tpu_torch.models.postprocess import postprocess_detection
+    src = build_model(cfg, seed=0, template=template)
+    path = os.path.join(root, f"{label}.pth")
+    t0 = time.perf_counter()
+    torch.save({"model": src.state_dict()}, path)
+    save_s = time.perf_counter() - t0
+    dst = build_model(cfg, seed=1, template=template)
+    t0 = time.perf_counter()
+    rep = load_reference_checkpoint(dst, path)
+    load_s = time.perf_counter() - t0
+    want, got = src.state_dict(), dst.state_dict()
+    if rep != {"loaded": len(want), "missing": [], "shape_mismatch": [], "unused_source": []}:
+        raise AssertionError(f"{label}: load report {rep}")
+    differ = [k for k, v in want.items() if not torch.equal(v, got[k])]
+    if differ:
+        raise AssertionError(f"{label}: tensors differ after the round trip: {differ[:5]}")
+    ids, tmask, cmap = _prompt(cfg)
+    img, pad, sizes = _serving_requests(dev)[0]
+    outs = []
+    with torch.inference_mode():
+        for model in (src, dst):
+            out = model(img, pad, sizes, torch.from_numpy(ids).long()[None].to(dev),
+                        torch.from_numpy(tmask)[None].to(dev))
+            post = postprocess_detection(out, torch.from_numpy(cmap).to(dev))
+            outs.append([out["pred_logits"], out["pred_boxes"], post["boxes"],
+                         post["scores"], post["classes"]])
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{label}: the loaded model's request differs from the source's")
+    print(f"[cli] {label}{' with the template branch' if template else ''}: {len(want)} "
+          f"tensors ({os.path.getsize(path) / 2 ** 20:.1f} MiB) saved as a reference .pth in "
+          f"{save_s:.2f} s and loaded into a model of another seed in {load_s:.2f} s: report "
+          f"loaded {rep['loaded']}, missing 0, shape mismatches 0, unused 0; the state dicts "
+          f"and one detection request of each model bit-equal")
+    del src, dst, outs
+    torch.cuda.empty_cache()
+    return path
+
+
+def phase_cli():
+    """The command line (`uninext_tpu_torch/tools/`) at full width on the
+    card, each tool's `main` in this process under a patched sys.argv, on
+    layouts generated in a temporary directory, random weights from a seed:
+    the reference-checkpoint round trip of `image_joint_r50` and of
+    `video_joint_r50` with the template branch (`_cli_round_trip`);
+    `train_net` on mini-COCO from that `.pth` (`--init-weights`,
+    `solver.max_iter=4`) and `--eval-only --resume` of its checkpoint (the
+    AP JSON); `eval_video` `--task vos` (DAVIS 480p, 2 objects), `--task
+    mots` (720x1280 frames) and `--task sot` (a LaSOT sequence) with
+    `video_joint_r50` from its `.pth`, and `--task sot` with
+    `video_joint_vit_huge` (kernel A), each writing its official files;
+    `demo --image` with `image_joint_r50`; the VOT adapter's `initialize`
+    and 3 `track` calls; `eval_seginw --make-mini --steps 0 --config
+    image_joint_r50`; then `python -m uninext_tpu_torch.tools.
+    analyze_sot_results` in a process of its own on the SOT files. Each
+    tool's wall time, per-step, per-frame or per-image median, peak memory
+    and launches, asserted per step, frame, request or evaluated image, as
+    path "cli_<tool>". Then MSDA and MSDA-bwd are held to their plain
+    versions at every shape the tools gave them, NMS's keep masks at every
+    input of the detection postprocess, and kernel A at the ViT-H SOT
+    frame's global shape (1x50x84). Returns ({path: launches}, {kernel:
+    checks})."""
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    from uninext_tpu_torch.config import image_joint_r50, video_joint_r50, video_joint_vit_huge
+    from uninext_tpu_torch.engine import sot_inference, trainer, video_inference
+    from uninext_tpu_torch.engine.evaluator import DetectionEvaluator
+    from uninext_tpu_torch.models import postprocess
+    from uninext_tpu_torch.ops import nms
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = _counters()
+    r50, video = image_joint_r50(), video_joint_r50()
+    per_pass = r50.transformer.enc_layers + r50.transformer.dec_layers   # MSDA a forward
+    remat = r50.transformer.enc_layers if r50.remat_encoder else 0
+    reid = lambda cfg: cfg.n_layer_deformable_reid if cfg.use_reid and \
+        cfg.use_deformable_reid else 0                 # MSDA of the reid head
+    blocks = video_joint_vit_huge().backbone.vit_depth  # kernel A a ViT-H backbone pass
+    launches, summary = {}, {}
+
+    def tool(path, run, timers, expect):
+        """`run()` as path `path`: the counts set to 0 just before it and read
+        just after; `timers` [(owner, name, factory?, log key)] time the
+        steps, frames or images; `expect(logs)` gives the launches it must
+        have made. Returns what `run` returned."""
+        logs = {key: [] for *_, key in timers}
+        undo = [(_timed_factory if factory else _timed_attr)(owner, name, logs[key])
+                for owner, name, factory, key in timers]
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            result = run()
+            torch.cuda.synchronize()
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        want = {**dict.fromkeys(counters, 0), **expect(logs)}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = logs.get("step", [])
+        med = sorted(ms)[len(ms) // 2] if ms else None
+        summary[path] = {"wall_s": wall, "median_ms": med, "timed": len(ms), "peak_gib": peak,
+                         **{f"{k}_calls": len(v) for k, v in logs.items() if k != "step"}}
+        print(f"[cli] {path}: wall {wall:.2f} s; {len(ms)} timed steps, frames or images, "
+              f"median {med} ms (" + ", ".join(f"{x:.1f}" for x in ms[:12])
+              + f"); peak device memory {peak:.2f} GiB; launches {_nonzero(got)}")
+        if got != want:
+            raise AssertionError(f"{path}: launches {got} != {want}")
+        launches[path] = got
+        return result
+
+    steps = lambda logs: len(logs["step"])
+    sot_timers = [(sot_inference, "make_sot_frame_step", True, "step"),
+                  (sot_inference, "make_template_encoder", True, "encode")]
+    calls, unrecord = _recording_msda()
+    nms_calls, unrecord_nms = _recording_nms(postprocess)
+    env = os.environ.get("UNINEXT_ALLOW_HASH_VOCAB")
+    os.environ["UNINEXT_ALLOW_HASH_VOCAB"] = "1"     # random BERT tables, the hash vocab
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as root:
+            lay = _cli_layouts(root)
+            pths = {}
+            for cfg, label, template in ((r50, "image_joint_r50", False),
+                                         (video, "video_joint_r50", True)):
+                pths[label] = tool(
+                    f"cli_checkpoint_{label}",
+                    lambda: _cli_round_trip(cfg, label, root, dev, template), [],
+                    lambda logs: {"ms_deform_attn_fwd": 2 * (per_pass + reid(cfg)),
+                                  "nms": 2})
+            coco, out = lay["coco"], os.path.join(root, "out")
+            tool("cli_train_net", lambda: _run_cli("train_net", [
+                "--config", "image_joint_r50", "--coco-json", coco["train_json"],
+                "--image-root", coco["train_root"], "--output-dir", out,
+                "--init-weights", pths["image_joint_r50"],
+                f"solver.max_iter={CLI_TRAIN_STEPS}"]),
+                [(trainer, "train_step", False, "step")],
+                lambda logs: {"ms_deform_attn_fwd": steps(logs) * (per_pass + remat),
+                              "ms_deform_attn_bwd": steps(logs) * per_pass})
+            text = tool("cli_train_net_eval", lambda: _run_cli("train_net", [
+                "--config", "image_joint_r50", "--eval-only", "--resume", "--coco-json",
+                coco["val_json"], "--image-root", coco["val_root"], "--output-dir", out]),
+                [(DetectionEvaluator, "predict", False, "step")],
+                lambda logs: {"ms_deform_attn_fwd": per_pass * steps(logs),
+                              "nms": steps(logs)})
+            ap = _cli_json(text)
+            summary["cli_train_net_eval"]["AP"] = ap["AP"]
+            if summary["cli_train_net"]["timed"] != CLI_TRAIN_STEPS or \
+                    summary["cli_train_net_eval"]["timed"] != 4 or \
+                    not all(math.isfinite(ap[k]) for k in ("AP", "AP50")):
+                raise AssertionError(f"train_net: {summary['cli_train_net']}, "
+                                     f"{summary['cli_train_net_eval']}, {ap}")
+
+            vos_out = os.path.join(root, "vos")
+            text = tool("cli_vos", lambda: _run_cli("eval_video", [
+                "--task", "vos", "--data-root", lay["davis"], "--config", "video_joint_r50",
+                "--weights", pths["video_joint_r50"], "--output-dir", vos_out]),
+                sot_timers, lambda logs: {"ms_deform_attn_fwd": per_pass * steps(logs)})
+            summary["cli_vos"]["J&F"] = _cli_json(text)["J&F"]
+            pngs = sorted(os.listdir(os.path.join(vos_out, "toyvid")))
+            if len(pngs) != CLI_FRAMES or summary["cli_vos"]["timed"] != 2 * CLI_FRAMES - 1 or \
+                    {Image.open(os.path.join(vos_out, "toyvid", p)).mode for p in pngs} != {"P"}:
+                raise AssertionError(f"vos: PNGs {pngs}, {summary['cli_vos']}")
+            mots_out = os.path.join(root, "mots")
+            tool("cli_mots", lambda: _run_cli("eval_video", [
+                "--task", "mots", "--data-root", lay["bdd"], "--config", "video_joint_r50",
+                "--weights", pths["video_joint_r50"], "--output-dir", mots_out]),
+                [(video_inference._FrameDriver, "frame_outputs", False, "step")],
+                lambda logs: {"ms_deform_attn_fwd": (per_pass + reid(video)) * steps(logs),
+                              "nms": steps(logs)})
+            with open(os.path.join(mots_out, "box_track.json")) as f:
+                box_track = json.load(f)
+            seg = sorted(os.listdir(os.path.join(mots_out, "seg_track", "vid0")))
+            if summary["cli_mots"]["timed"] != CLI_FRAMES or len(box_track) != CLI_FRAMES \
+                    or len(seg) != CLI_FRAMES or Image.open(os.path.join(
+                        mots_out, "seg_track", "vid0", seg[0])).mode != "RGBA":
+                raise AssertionError(f"mots: {summary['cli_mots']}, {len(box_track)} json "
+                                     f"frames, PNGs {seg}")
+            summary["cli_mots"]["tracked"] = sum(len(f["labels"]) for f in box_track)
+            sot_out = os.path.join(root, "sot")
+            text = tool("cli_sot", lambda: _run_cli("eval_video", [
+                "--task", "sot", "--data-root", lay["lasot"], "--config", "video_joint_r50",
+                "--weights", pths["video_joint_r50"], "--output-dir", sot_out]),
+                sot_timers, lambda logs: {"ms_deform_attn_fwd": per_pass * steps(logs)})
+            sot = _cli_json(text)
+            boxes = np.loadtxt(os.path.join(sot_out, "car-1.txt"), delimiter=",", ndmin=2)
+            if summary["cli_sot"]["timed"] != CLI_FRAMES - 1 or boxes.shape != (CLI_FRAMES, 4) \
+                    or not os.path.exists(os.path.join(sot_out, "car-1_time.txt")) or \
+                    not all(math.isfinite(v) for v in sot.values()):
+                raise AssertionError(f"sot: {summary['cli_sot']}, boxes {boxes.shape}, {sot}")
+            summary["cli_sot"]["AUC"] = sot["AUC"]
+            vith_out = os.path.join(root, "sot_vith")
+            tool("cli_sot_vith", lambda: _run_cli("eval_video", [
+                "--task", "sot", "--data-root", lay["lasot"], "--config",
+                "video_joint_vit_huge", "--output-dir", vith_out]), sot_timers,
+                lambda logs: {"ms_deform_attn_fwd": per_pass * steps(logs),
+                              "rel_pos_flash_attn": blocks * (steps(logs) +
+                                                              len(logs["encode"]))})
+            if summary["cli_sot_vith"]["timed"] != CLI_FRAMES - 1:
+                raise AssertionError(f"sot ViT-H: {summary['cli_sot_vith']}")
+            torch.cuda.empty_cache()
+
+            demo_png = os.path.join(root, "demo.png")
+            tool("cli_demo", lambda: _run_cli("demo", [
+                "--image", lay["image"], "--config", "image_joint_r50", "--output", demo_png]),
+                [], lambda logs: {"ms_deform_attn_fwd": per_pass, "nms": 1})
+            if Image.open(demo_png).size != (1067, 800):
+                raise AssertionError(f"demo: output of size {Image.open(demo_png).size}")
+
+            def vot():
+                from uninext_tpu_torch.tools.vot_integration import UninextVOTTracker
+                seq = os.path.join(lay["lasot"], "car", "car-1", "img")
+                images = [np.asarray(Image.open(os.path.join(seq, f)))
+                          for f in sorted(os.listdir(seq))]
+                tracker = UninextVOTTracker()
+                tracker.initialize(images[0], [300.0, 200.0, 320.0, 260.0])
+                answers = [tracker.track(im) for im in images]
+                for box, conf in answers:
+                    if not (len(box) == 4 and np.isfinite(box).all() and 0 <= conf <= 1):
+                        raise AssertionError(f"vot: answer {box}, {conf}")
+                print("[cli] vot: (x, y, w, h), confidence: " + "; ".join(
+                    f"{[round(v, 1) for v in b]}, {c:.4f}" for b, c in answers))
+
+            tool("cli_vot", vot, sot_timers,
+                 lambda logs: {"ms_deform_attn_fwd": per_pass * steps(logs)})
+            if (summary["cli_vot"]["timed"], summary["cli_vot"]["encode_calls"]) != (3, 1):
+                raise AssertionError(f"vot: {summary['cli_vot']}")
+            seg_json = os.path.join(root, "seginw.json")
+            tool("cli_seginw", lambda: _run_cli("eval_seginw", [
+                "--make-mini", "--steps", "0", "--config", "image_joint_r50", "--out",
+                seg_json]), [(DetectionEvaluator, "predict", False, "step")],
+                lambda logs: {"ms_deform_attn_fwd": per_pass * steps(logs),
+                              "nms": steps(logs)})
+            with open(seg_json) as f:
+                seginw = json.load(f)
+            if summary["cli_seginw"]["timed"] != 2 * 2 * 6 or seginw["n_datasets"] != 2:
+                raise AssertionError(f"seginw: {summary['cli_seginw']}, {seginw}")
+
+            # the module entry point, in a process of its own
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m",
+                                   "uninext_tpu_torch.tools.analyze_sot_results",
+                                   "--results", sot_out, vith_out, "--data-root",
+                                   lay["lasot"]], cwd=HERE, capture_output=True, text=True,
+                                  timeout=300)
+            rows = [line.split() for line in proc.stdout.splitlines()
+                    if line.startswith("sot")]
+            if proc.returncode or len(rows) != 2 or any(r[1] != "1" for r in rows):
+                raise AssertionError(f"python -m analyze_sot_results: rc {proc.returncode}, "
+                                     f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+            print(f"[cli] python -m uninext_tpu_torch.tools.analyze_sot_results on the SOT "
+                  f"files, in its own process: {time.perf_counter() - t0:.1f} s")
+            for line in proc.stdout.splitlines():
+                print(f"  | {line}")
+    finally:
+        unrecord()
+        unrecord_nms()
+        if env is None:
+            os.environ.pop("UNINEXT_ALLOW_HASH_VOCAB", None)
+        else:
+            os.environ["UNINEXT_ALLOW_HASH_VOCAB"] = env
+    checks = {name: {f"cli_{k[5:] if k.startswith('loop_') else k}": v for k, v in r.items()}
+              for name, r in _check_msda_calls(calls, label="cli").items()}
+    kept = []
+    for boxes, scores, classes, thr, valid in nms_calls:
+        for v in (valid, (scores > scores.median()).contiguous()):
+            got = nms.batched_nms(boxes, scores, classes, thr, valid=v)
+            if not torch.equal(got, nms.batched_nms_plain(boxes, scores, classes, thr,
+                                                          valid=v)):
+                raise AssertionError("cli: NMS keep mask differs from the plain version")
+            kept.append(int(got.sum()))
+    checks["nms"] = {"cli_calls": len(nms_calls), "cli_kept": kept[:16]}
+    gk = torch.Generator(device=dev).manual_seed(20)
+    err, ms, pms, b_ms, b_by, lib, gms, lib_g = _kernel_a_at(gk, "cli_sot_vith", 1, 50, 84)
+    checks["rel_pos_flash_attn"] = {
+        "cli_sot_vith_max_abs_err": err, "cli_sot_vith_ms": ms, "cli_sot_vith_plain_ms": pms,
+        "cli_sot_vith_bound_ms": b_ms, "cli_sot_vith_bound_by": b_by,
+        "cli_sot_vith_library_ms": lib, "cli_sot_vith_graph_ms": gms,
+        "cli_sot_vith_library_graph_ms": lib_g, "cli_sot_vith_shape": "B=1 50x84 bf16"}
+    checks["ms_deform_attn_fwd"]["cli_tools"] = {
+        p: {k: (round(v, 4) if isinstance(v, float) else v) for k, v in s.items()}
+        for p, s in summary.items()}
+    print(f"[cli] NMS keep masks of the {len(nms_calls)} detection postprocesses identical "
+          f"to the plain version's (as given; with the upper half of the scores valid); MSDA "
+          f"at {len(calls)} recorded shapes held to plain; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -3685,10 +4128,13 @@ def main():
     convnext, convnext_checks = phase_convnext(profile)
     for name, r in convnext_checks.items():
         rec[name].update(r)
+    cli, cli_checks = phase_cli()
+    for name, r in cli_checks.items():
+        rec[name].update(r)
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
-    a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in vith_rec.items()
-                                                  if k.endswith("max_abs_err")])
+    a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in a.items()
+                                                  if k.endswith("_max_abs_err")])
     for prefix, checks in (("sot_training", sot_train_checks), ("sot_loop", sot_loop_checks)):
         for name, r in checks.items():
             rec[name].update({f"{prefix}_{k}": v for k, v in r.items()})
@@ -3709,6 +4155,7 @@ def main():
                    **{path: n[name] for path, n in parallel.items()},
                    **{path: n[name] for path, n in recipe.items()},
                    **{path: n[name] for path, n in convnext.items()},
+                   **{path: n[name] for path, n in cli.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -3729,7 +4176,8 @@ def main():
                            if k in r},
                         **{k: v for k, v in r.items()
                            if k.startswith(("vis_", "mot_", "video_", "sot_", "vos_",
-                                            "rvos_", "recipe_", "convnext_", "k2_", "k4_",
+                                            "rvos_", "recipe_", "convnext_", "cli_", "k2_",
+                                            "k4_",
                                             "launches_per_rank",
                                             "peak_gib_per_rank", "step_rel_err", "nccl_"))}})
         k = kernels[-1]

@@ -108,11 +108,22 @@ def test_port_runs_without_jax():
     encode through a 4-channel ConvNeXt) and RoBERTa, at a tiny size, and
     importing the training
     recipe's modules (BoxInst's targets, the recipe's three fixture tools),
-    leave jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
-    `uninext_tpu.*`) out of sys.modules: the H100 machine runs the port
-    without them."""
+    and importing every command-line tool and the host modules under it
+    (the registry, the SOT loaders, the submission writers) with
+    `train_net --eval-only` on a mini-COCO from a reference `.pth`, run
+    with jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
+    `uninext_tpu.*`) blocked from import and leave them out of
+    sys.modules: the H100 machine runs the port without them."""
     code = textwrap.dedent("""
         import sys
+        import importlib.abc
+
+        class BlockJax(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"):
+                    raise ImportError(f"{name} is blocked in this process")
+
+        sys.meta_path.insert(0, BlockJax())
         import numpy as np
         import torch
         import uninext_tpu_torch
@@ -303,6 +314,29 @@ def test_port_runs_without_jax():
         import uninext_tpu_torch.tools.joint_check
         import uninext_tpu_torch.tools.pipeline_check
         import uninext_tpu_torch.tools.rec_check
+        # the command line: every tool and the host modules under it, and
+        # train_net --eval-only on a mini-COCO through a reference .pth
+        import uninext_tpu_torch.data.registry
+        import uninext_tpu_torch.data.sot_datasets
+        import uninext_tpu_torch.evaluation.bdd_submit
+        import uninext_tpu_torch.evaluation.sot_submit
+        import uninext_tpu_torch.tools.analyze_sot_results
+        import uninext_tpu_torch.tools.convert_datasets
+        import uninext_tpu_torch.tools.demo
+        import uninext_tpu_torch.tools.eval_seginw
+        import uninext_tpu_torch.tools.eval_video
+        import uninext_tpu_torch.tools.vot_integration
+        from uninext_tpu_torch.data.mini_coco import make_mini_coco
+        from uninext_tpu_torch.tools import train_net
+        os.environ["UNINEXT_ALLOW_HASH_VOCAB"] = "1"
+        with tempfile.TemporaryDirectory() as root:
+            mc = make_mini_coco(root, n_train=1, n_val=1, seed=3, img_size=(48, 64))
+            torch.save({"model": build_model(r50, "cpu", seed=8).state_dict()},
+                       root + "/init.pth")
+            train_net.main(["--config", "tiny_test_config", "--eval-only", "--coco-json",
+                            mc["val_json"], "--image-root", mc["val_root"], "--init-weights",
+                            root + "/init.pth", "--device", "cpu",
+                            "data.min_size_test=64", "data.max_size_test=96"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "flax", "optax", "orbax", "uninext_tpu"))
         print("JAX_MODULES", bad)

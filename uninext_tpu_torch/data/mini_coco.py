@@ -1,5 +1,5 @@
-"""A copy of `uninext_tpu/data/mini_coco.py`, with its COCO, YTVIS and
-RefCOCO fixtures (the port imports nothing of the JAX package).
+"""A copy of `uninext_tpu/data/mini_coco.py`, with its COCO, YTVIS,
+RefCOCO and SegInW fixtures (the port imports nothing of the JAX package).
 
 Mini COCO-format dataset generator: real JPEGs + real instances json.
 
@@ -280,3 +280,27 @@ def make_mini_refcoco(root: str, n_train: int = 48, n_val: int = 16,
         out[f"{split}_json"] = jpath
         out[f"{split}_root"] = img_dir
     return out
+
+
+def make_mini_seginw(root: str, subsets: Tuple[str, ...] = ("Chicken",
+                                                            "Cows"),
+                     n_val: int = 6, seed: int = 0) -> str:
+    """SegInW-layout fixture: seginw/<Subset>/valid/{*.jpg,
+    _annotations_min1cat.coco.json} — the exact on-disk layout
+    data/registry.py's 25 `seginw_*_val` splits resolve (reference
+    data/datasets/seginw.py). Each subset gets its own images; category
+    names stay the generator's shapes (the prompt is per-dataset either
+    way). Returns `root` (point $UNINEXT_DATA at it)."""
+    import shutil
+    for i, sub in enumerate(subsets):
+        tmp = os.path.join(root, f"_tmp_{sub}")
+        paths = make_mini_coco(tmp, n_train=1, n_val=n_val, seed=seed + i)
+        dst = os.path.join(root, "seginw", sub, "valid")
+        os.makedirs(dst, exist_ok=True)
+        for fn in os.listdir(paths["val_root"]):
+            shutil.move(os.path.join(paths["val_root"], fn),
+                        os.path.join(dst, fn))
+        shutil.move(paths["val_json"],
+                    os.path.join(dst, "_annotations_min1cat.coco.json"))
+        shutil.rmtree(tmp)
+    return root

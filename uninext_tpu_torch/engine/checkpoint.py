@@ -125,16 +125,25 @@ class CheckpointManager:
     def resume_or_load(self, state: TrainState, init_weights_path: Optional[str] = None
                        ) -> Tuple[TrainState, bool]:
         """Resume the whole state from the latest checkpoint if there is
-        one; else load the model's weights from `init_weights_path` (a
-        state dict, or a checkpoint of this manager), leaving the optimizer
-        and the step as they are."""
+        one; else load the model's weights from `init_weights_path`,
+        leaving the optimizer and the step as they are: a checkpoint file of
+        a `CheckpointManager` strictly, a reference `.pth` (or a bare state
+        dict) as `uninext_tpu/engine/checkpoint.py:62` does, through
+        `engine/convert.py` (by name and shape with its report, refusing a
+        BERT table under the hash vocab)."""
         state, resumed = self.restore(state)
         if resumed:
             return state, True
         if init_weights_path and os.path.exists(init_weights_path):
-            sd = torch.load(init_weights_path, map_location="cpu", weights_only=True)
-            state.model.load_state_dict(sharding.cut_state_dict(
-                state.model, sd.get("model", sd), state.mesh))
+            from .convert import load_reference_state_dict, require_real_vocab_for
+            payload = torch.load(init_weights_path, map_location="cpu", weights_only=True)
+            if {"model", "optimizer", "step", "generator"} <= set(payload):
+                state.model.load_state_dict(sharding.cut_state_dict(
+                    state.model, payload["model"], state.mesh))
+            else:
+                sd = payload.get("model", payload)
+                require_real_vocab_for(sd)
+                load_reference_state_dict(state.model, sd, state.mesh)
         return state, False
 
 

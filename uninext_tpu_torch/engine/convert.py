@@ -38,6 +38,11 @@ must be consumed and every port parameter filled (but `load_jax_params`'s
 one exception, for a video tree's DN label encoder); anything else raises,
 a template leaf the tree lacks by its name. The input is a tree of numpy
 arrays (or anything `np.asarray` takes), so this module needs no JAX.
+
+Reference checkpoints need no bridge: `load_reference_checkpoint` (the
+counterpart of `load_torch_checkpoint` there) copies a `.pth`'s tensors
+into the model by name and shape and reports what it loaded, what the
+model missed, what had another shape and what went unused.
 """
 from __future__ import annotations
 
@@ -510,3 +515,94 @@ def load_jax_params(module: torch.nn.Module, params,
     if missing or unexpected:
         raise RuntimeError(f"port parameters not filled: {missing}; "
                            f"keys the port does not have: {unexpected}")
+
+
+# ---- reference checkpoints (.pth) --------------------------------------------------
+
+def require_real_vocab_for(sd: Dict) -> None:
+    """`uninext_tpu/engine/convert.py:507 _require_real_vocab_for`: refuse a
+    state dict whose BERT word-embedding table was trained against a real
+    WordPiece vocab when the tokenizer has none (the hash-vocab fallback of
+    `data/tokenizer.py` would silently mis-tokenize every prompt), unless
+    `UNINEXT_ALLOW_HASH_VOCAB=1` (for synthetic fixtures)."""
+    import os
+    if os.environ.get("UNINEXT_ALLOW_HASH_VOCAB") == "1":
+        return
+    probe = "embeddings.word_embeddings.weight"
+    if not any(k.endswith(probe) for k in sd):
+        return                      # no language tower in this checkpoint
+    from ..data.tokenizer import BertTokenizer
+    if BertTokenizer().vocab is None:
+        raise RuntimeError(
+            "This checkpoint carries a BERT word-embedding table trained "
+            "against a real WordPiece vocab, but no vocab.txt is available "
+            "— the hash-vocab fallback would silently mis-tokenize every "
+            "prompt. Supply bert-base-uncased vocab.txt via the "
+            "UNINEXT_BERT_VOCAB env var (see docs/DATA.md), or set "
+            "UNINEXT_ALLOW_HASH_VOCAB=1 only for synthetic fixtures.")
+
+
+def _listed(names, limit: int = 20) -> str:
+    shown = ", ".join(str(n) for n in names[:limit])
+    return shown + (f", ... ({len(names) - limit} more)" if len(names) > limit else "")
+
+
+@torch.no_grad()
+def load_reference_state_dict(model: torch.nn.Module, sd: Dict, mesh=None,
+                              verbose: bool = True) -> Dict:
+    """Copy every tensor of `sd` (the reference's names, which are the
+    port's) whose name and shape `model` has into it, in the model's dtype.
+    Returns the report of `uninext_tpu/engine/convert.py:444
+    convert_checkpoint`: {"loaded": count, "missing": the model's tensors
+    `sd` lacks (left as they were), "shape_mismatch": [(name, model shape,
+    file shape)], "unused_source": `sd`'s names the model lacks}, with
+    `num_batches_tracked` ignored as there. A model cut over a `mesh`'s
+    model group gets each tensor cut to the rank's shard."""
+    sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+          for k, v in sd.items()}
+    if mesh is not None:
+        from ..parallel.sharding import cut_state_dict
+        sd = cut_state_dict(model, sd, mesh)
+    target = model.state_dict()
+    report = {"loaded": 0, "missing": [], "shape_mismatch": [], "unused_source": []}
+    for name, t in target.items():
+        if name not in sd:
+            report["missing"].append(name)
+            continue
+        s = sd[name]
+        if tuple(s.shape) != tuple(t.shape):
+            report["shape_mismatch"].append((name, tuple(t.shape), tuple(s.shape)))
+            continue
+        t.copy_(s.to(dtype=t.dtype))
+        report["loaded"] += 1
+    report["unused_source"] = sorted(k for k in sd if k not in target
+                                     and not k.endswith("num_batches_tracked"))
+    if verbose:
+        print(f"[convert] loaded {report['loaded']} tensors; "
+              f"{len(report['missing'])} missing, "
+              f"{len(report['shape_mismatch'])} shape mismatches, "
+              f"{len(report['unused_source'])} unused")
+        for what in ("missing", "shape_mismatch", "unused_source"):
+            if report[what]:
+                print(f"[convert] {what}: {_listed(report[what])}")
+    return report
+
+
+def read_reference_checkpoint(path: str) -> Dict:
+    """The state dict of a detectron2-style `{"model": state_dict, ...}`
+    `.pth` (the reference's checkpoints, and this package's
+    `CheckpointManager` files) or of a bare state dict."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    return sd["model"] if "model" in sd else sd
+
+
+def load_reference_checkpoint(model: torch.nn.Module, path: str, mesh=None,
+                              verbose: bool = True) -> Dict:
+    """`uninext_tpu/engine/convert.py:535 load_torch_checkpoint` for the
+    port: read a reference `.pth` (`read_reference_checkpoint`) and load it
+    into `model` by name and shape (`load_reference_state_dict`), refusing a
+    BERT table under the hash vocab (`require_real_vocab_for`). Returns
+    the report."""
+    sd = read_reference_checkpoint(path)
+    require_real_vocab_for(sd)
+    return load_reference_state_dict(model, sd, mesh, verbose)
