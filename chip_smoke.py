@@ -10,7 +10,8 @@ data and tensor parallelism, the three-stage training recipe (BoxInst,
 the stage hand-off, the routed image and video stages), ConvNeXt-L's
 image and video presets (serving, training, the hand-off, SOT/VOS/R-VOS
 and the SOT step) with a RoBERTa request, the command-line tools (training,
-evaluation, the demo, SegInW, the VOT adapter, reference checkpoints) and
+evaluation, the demo, SegInW, the VOT adapter, reference checkpoints), the
+eval protocol and batched serving (the frontier and throughput tools) and
 the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
@@ -215,6 +216,20 @@ nonzero):
      launches (asserted), as paths "cli_*"; MSDA and MSDA-bwd held to their
      plain versions at every shape the tools gave them, NMS's keep masks at
      the postprocess's inputs, kernel A at the ViT-H SOT frame's 1x50x84.
+  21. the eval protocol and batched serving (`phase_protocol`,
+     `uninext_tpu_torch/engine/protocol.py`): `image_joint_r50` at full
+     width (seed 0, 0.01 noise on the MSDA sampling projections): the
+     no-op cut's request bit-equal to the model's; a bs=4 step (one image
+     padded) against each image's bs=1 request (bf16: the encoder memory elementwise; an
+     fp32 copy: the memory and the top 20 detections); `frontier_sweep
+     --mode fps` over the 14
+     protocols (MSDA 12, NMS 1 a request), `frontier_sweep --smoke --mode
+     ap` (4 steps of the tiny preset, its three protocols evaluated) and
+     `serve_throughput --sizes 1 2 4 8`, as paths "protocol_noop",
+     "batched_rows", "protocol_fps", "protocol_ap", "batched_serve"; MSDA
+     held to its plain version at every shape they gave it (P = 2 in the
+     encoder and the decoder, Lq = 300 and 600) and timed at four, NMS's
+     keep masks at N = 300, 600, 900 and B up to 8, timed at three.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -3998,6 +4013,337 @@ def phase_cli():
     return launches, checks
 
 
+PROTOCOL_REQUESTS = 3      # timed requests of each protocol (after the first and the warm-up)
+PROTOCOL_AP_STEPS = 4      # training steps of the frontier's AP half (--smoke)
+# a batch's rows against lone requests: in bf16 only the encoder memory (a
+# rounding step reorders near-tied proposals, and the decoder's slots follow
+# the order), about twice the errors read on the H100 (mean 5.2e-3, max
+# 1.07e-2 of the memory's mean and max magnitude); in fp32 the memory and
+# the top 20 detections too
+BATCHED_TOL = {"bf16": {"memory_mean": 1e-2, "memory_max": 2e-2},
+               "fp32": {"memory_mean": 1e-4, "memory_max": 1e-3, "matched": 0.8}}
+
+
+def _nms_bound(classes):
+    """NMS's bound at (B, N) class labels `classes`: boxes, scores, classes
+    read and the keep mask written once; 12 operations a same-class pair
+    (the IoU against the threshold)."""
+    import torch
+    B, N = classes.shape
+    pairs = 0.0
+    for b in range(B):
+        counts = torch.bincount(classes[b]).double()
+        pairs += float((counts * (counts - 1) / 2).sum())
+    return _bound(B * N * (16 + 4 + 8 + 1), pairs * 12, "fp32")
+
+
+def _matched_share(post_a, post_b, b, top=20):
+    """The share of image `b`'s `top` detections in `post_a` that `post_b`'s
+    image `b` (the same image served in another batch) also has among its
+    own: the same class, IoU >= 0.9 and a score within 5% of the top
+    score."""
+    from uninext_tpu_torch.utils import box_ops
+    boxes_a, cls_a, sc_a = (post_a[k][b][:top] for k in ("boxes", "classes", "scores"))
+    iou, _ = box_ops.box_iou(boxes_a.float(), post_b["boxes"][b].float())
+    ok = ((iou >= 0.9) & (cls_a[:, None] == post_b["classes"][b][None])
+          & ((sc_a[:, None] - post_b["scores"][b][None]).abs() <= 0.05 * sc_a.max()))
+    return float(ok.any(1).float().mean())
+
+
+def phase_protocol():
+    """The eval protocol (`engine/protocol.py`) and batched serving at full
+    width: `image_joint_r50()` with the seed-0 weights and 0.01 noise on the
+    MSDA sampling projections (`tools/serve_throughput.py:perturb_sampling`;
+    their init is zero). Paths:
+      protocol_noop: one request of the model and of its no-op cut (900
+        queries, 4 + 4 points), whose outputs must be bit-equal;
+      batched_rows: 4 images served as one batch and each alone (the COCO
+        prompt encoded once and expanded; the last image 800x1088 padded to
+        the bucket, so the batch's masks and valid ratios differ by row), by
+        the model and by an fp32 copy of it: per image, the encoder memory within BATCHED_TOL of the lone
+        request's and, in fp32, the share of the lone request's top 20
+        detections that the batch's row has too (class, IoU >= 0.9, score
+        within 5% of the top score) at least BATCHED_TOL["fp32"]["matched"]
+        (cuDNN may choose other algorithms per batch; in bf16 a rounding
+        step reorders near-tied proposals, which the decoder's slots
+        follow, so only the memory is comparable there);
+      protocol_fps: `frontier_sweep --mode fps` over the 14 protocols,
+        PROTOCOL_REQUESTS timed rounds (MSDA 12, NMS 1 a request);
+      protocol_ap: `frontier_sweep --smoke --mode ap` (PROTOCOL_AP_STEPS
+        training steps of the tiny preset, then its three protocols
+        evaluated, bbox and segm);
+      batched_serve: `serve_throughput --sizes 1 2 4 8` at 800x1216.
+    Then MSDA is held to its plain version at every shape these paths gave
+    it (P = 2 in the encoder and the decoder, Lq = 300 and 600 among them)
+    and timed at four of them beside its bound, and NMS's keep masks to the
+    plain version's at two inputs of each recorded (B, N) (N = 300, 600,
+    900; B up to 8), each as given and with the upper half of the scores
+    valid, timed at N = 300, 600 and B = 8. The paths' wall times, the
+    requests' times and the throughput rows are printed as one summary
+    line. Returns ({path: launches}, {kernel: checks})."""
+    import dataclasses
+    import tempfile
+    import torch
+    from uninext_tpu_torch.config import image_joint_r50
+    from uninext_tpu_torch.engine.evaluator import DetectionEvaluator
+    from uninext_tpu_torch.engine.protocol import adapted_model, load_model
+    from uninext_tpu_torch.engine import trainer
+    from uninext_tpu_torch.models import postprocess
+    from uninext_tpu_torch.models.detr import build_model
+    from uninext_tpu_torch.ops import nms
+    from uninext_tpu_torch.tools import event_ms, frontier_sweep, serve_throughput
+    from uninext_tpu_torch.tools.ap_check import build_cfg
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = _counters()
+    r50 = image_joint_r50()
+    t = r50.transformer
+    per_pass = t.enc_layers + t.dec_layers
+    launches, summary = {}, {}
+
+    def path(name, run, expect, timers=()):
+        """`run()` as path `name`: the counts set to 0 just before and read
+        just after, held to `expect(logs)`."""
+        logs = {key: [] for *_, key in timers}
+        undo = [_timed_attr(owner, attr, logs[key]) for owner, attr, key in timers]
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            result = run()
+            torch.cuda.synchronize()
+        finally:
+            for u in undo:
+                u()
+        got = {k: c.launches for k, c in counters.items()}
+        want = {**dict.fromkeys(counters, 0), **expect(logs)}
+        summary[name] = {"wall_s": time.perf_counter() - t0,
+                         **{f"{k}_calls": len(v) for k, v in logs.items()}}
+        print(f"[protocol] {name}: wall {summary[name]['wall_s']:.2f} s; launches "
+              f"{_nonzero(got)}")
+        if got != want:
+            raise AssertionError(f"{name}: launches {got} != {want}")
+        launches[name] = got
+        return result
+
+    calls, unrecord = _recording_msda()
+    nms_calls, unrecord_nms = _recording_nms(postprocess)
+    try:
+        model = build_model(r50, dev, seed=0)
+        serve_throughput.perturb_sampling(model, serve_throughput.SAMPLING_NOISE, 0)
+        lang, cmap = serve_throughput.coco_prompt(model, dev)
+        img, pad, sizes = _serving_requests(dev)[0]
+
+        def noop():
+            same, _ = adapted_model(model, r50, num_queries=t.num_queries,
+                                    enc_n_points=t.enc_n_points, dec_n_points=t.dec_n_points,
+                                    device=dev)
+            outs = []
+            with torch.inference_mode():
+                for m in (model, same):
+                    out = m(img, pad, sizes, None, lang["masks"], lang_dict=lang)
+                    post = postprocess.postprocess_detection(out, cmap)
+                    outs.append([out[k] for k in ("pred_logits", "pred_boxes", "pred_boxious",
+                                                  "memory")]
+                                + [post[k] for k in ("boxes", "scores", "classes")])
+            if not all(torch.equal(a, b) for a, b in zip(*outs)):
+                raise AssertionError("protocol: the no-op cut serves other outputs")
+            print("[protocol] the no-op protocol (900 queries, 4 + 4 points): its model's "
+                  "request bit-equal to the unadapted model's (logits, boxes, IoU logits, "
+                  "memory; boxes, scores, classes after postprocess)")
+
+        path("protocol_noop", noop, lambda logs: {"ms_deform_attn_fwd": 2 * per_pass,
+                                                 "nms": 2})
+
+        def rows():
+            """Per compute dtype and image: the encoder memory's mean and
+            max error over its mean and max magnitude, and the matched
+            share of the lone request's top 20 detections."""
+            images, masks, sz = serve_throughput.random_images(4, *IMAGE_HW, 21, dev)
+            masks[3, :, 1088:] = True          # the last image narrower, padded
+            images[3, :, 1088:] = 0
+            sz[3, 1] = 1088
+            m32 = load_model(model.state_dict(),
+                             dataclasses.replace(r50, compute_dtype="float32"), dev)
+            errs = {}
+            with torch.inference_mode():
+                for name, m in (("bf16", model), ("fp32", m32)):
+                    lang1 = lang if m is model else serve_throughput.coco_prompt(m, dev)[0]
+                    lang4 = serve_throughput.expand_prompt(lang1, 4)
+                    out4 = m(images, masks, sz, None, lang4["masks"], lang_dict=lang4)
+                    post4 = postprocess.postprocess_detection(out4, cmap)
+                    errs[name] = []
+                    for b in range(4):
+                        out1 = m(images[b:b + 1], masks[b:b + 1], sz[b:b + 1], None,
+                                 lang1["masks"], lang_dict=lang1)
+                        post1 = postprocess.postprocess_detection(out1, cmap)
+                        m1, m4 = out1["memory"][0].float(), out4["memory"][b].float()
+                        errs[name].append({
+                            "memory_mean": float((m4 - m1).abs().mean() / m1.abs().mean()),
+                            "memory_max": float((m4 - m1).abs().max() / m1.abs().max()),
+                            "matched": _matched_share(post1, {k: v[b:b + 1] for k, v in
+                                                              post4.items()}, 0)})
+            del m32
+            for name, tol in BATCHED_TOL.items():
+                for b, e in enumerate(errs[name]):
+                    if not all(e[k] >= v if k == "matched" else e[k] <= v
+                               for k, v in tol.items()):
+                        raise AssertionError(f"batched ({name}): image {b} of the bs=4 step "
+                                             f"against its bs=1 request: {e} (tolerance {tol})")
+            for name, es in errs.items():
+                print(f"[protocol] bs=4 step against each image's bs=1 request ({name}): "
+                      + "; ".join(f"image {b}: memory mean/max err {e['memory_mean']:.2e}/"
+                                  f"{e['memory_max']:.2e} of the mean/max, {e['matched']:.2f} "
+                                  f"of the top 20 detections matched" for b, e in enumerate(es))
+                      + f" (tolerance {BATCHED_TOL[name]})")
+            return errs
+
+        summary["batched_rows_errors"] = path(
+            "batched_rows", rows, lambda logs: {"ms_deform_attn_fwd": 10 * per_pass, "nms": 10})
+        del model
+        torch.cuda.empty_cache()
+
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_protocol_") as root:
+            per_protocol = 1 + serve_throughput.WARMUP + PROTOCOL_REQUESTS
+            fps = path("protocol_fps", lambda: frontier_sweep.main([
+                "--mode", "fps", "--hw", *map(str, IMAGE_HW), "--requests",
+                str(PROTOCOL_REQUESTS), "--seed", "0", "--out", os.path.join(root, "fps.json")]),
+                lambda logs: {"ms_deform_attn_fwd": 14 * per_protocol * per_pass,
+                              "nms": 14 * per_protocol})
+            for name, v in fps["protocols"].items():
+                if (v["msda_launches_per_request"], v["nms_launches_per_request"]) != (
+                        per_pass, 1):
+                    raise AssertionError(f"protocol_fps {name}: launches a request {v}")
+                print(f"[protocol] {name:20s} {v['serving_shape'][0]}x{v['serving_shape'][1]}"
+                      f": median {v['request_ms']['median']:.2f} ms ("
+                      f"{v['request_ms']['min']:.2f}-{v['request_ms']['max']:.2f}), "
+                      f"{v['fps_det']:.2f} FPS, MSDA {v['msda_launches_per_request']:g} and "
+                      f"NMS {v['nms_launches_per_request']:g} a request")
+            summary["protocol_fps_ms"] = {k: v["request_ms"]["median"]
+                                          for k, v in fps["protocols"].items()}
+            tiny = build_cfg(PROTOCOL_AP_STEPS, flagship=False)
+            tiny_pass = tiny.transformer.enc_layers + tiny.transformer.dec_layers
+            tiny_remat = tiny.transformer.enc_layers if tiny.remat_encoder else 0
+            ap = path("protocol_ap", lambda: frontier_sweep.main([
+                "--smoke", "--mode", "ap", "--steps", str(PROTOCOL_AP_STEPS), "--n-train", "4",
+                "--n-val", "2", "--out", os.path.join(root, "ap.json")]),
+                lambda logs: {
+                    "ms_deform_attn_fwd": len(logs["step"]) * (tiny_pass + tiny_remat)
+                    + len(logs["image"]) * tiny_pass,
+                    "ms_deform_attn_bwd": len(logs["step"]) * tiny_pass,
+                    "nms": len(logs["image"]) if tiny.loss.ota else 0},
+                timers=[(trainer, "train_step", "step"),
+                        (DetectionEvaluator, "predict", "image")])
+            if summary["protocol_ap"]["step_calls"] != PROTOCOL_AP_STEPS or \
+                    ap["protocols"]["base_900q_p44_800px"].get("ap_segm") is None or \
+                    any(v.get("ap_bbox") is None for v in ap["protocols"].values()):
+                raise AssertionError(f"protocol_ap: {summary['protocol_ap']}, {ap}")
+            print(f"[protocol] frontier AP half (--smoke, {PROTOCOL_AP_STEPS} steps): "
+                  + ", ".join(f"{k} AP {v['ap_bbox']}" for k, v in ap["protocols"].items())
+                  + f"; promoted {ap.get('promoted', {}).get('name')}")
+            sizes_ = (1, 2, 4, 8)
+            thr = path("batched_serve", lambda: serve_throughput.main([
+                "--sizes", *map(str, sizes_), "--hw", *map(str, IMAGE_HW), "--requests",
+                str(PROTOCOL_REQUESTS), "--out", os.path.join(root, "throughput.json")]),
+                lambda logs: {"ms_deform_attn_fwd": len(sizes_) * per_protocol * per_pass,
+                              "nms": len(sizes_) * per_protocol})
+            for row in thr["rows"]:
+                if (row["msda_launches_per_step"], row["nms_launches_per_step"]) != (
+                        per_pass, 1):
+                    raise AssertionError(f"batched_serve: launches a step {row}")
+            print("[protocol] serve_throughput at 800x1216: " + "; ".join(
+                f"bs {r['bs']}: step {r['step_ms']:.1f} ms, {r['img_per_s']:.2f} img/s, "
+                f"peak {r['peak_gib']:.2f} GiB" for r in thr["rows"]))
+            summary["batched_serve_rows"] = thr["rows"]
+    finally:
+        unrecord()
+        unrecord_nms()
+    torch.cuda.empty_cache()
+
+    seen = {(P, Lq == sum(h * w for h, w in shapes), Lq)
+            for B, shapes, Lq, M, D, P, dt, grad in calls}
+    need = {"encoder at P = 2": any(p == 2 and enc for p, enc, _ in seen),
+            "decoder at P = 2": any(p == 2 and not enc for p, enc, _ in seen),
+            "decoder at Lq = 300": any(lq == 300 and not enc for _, enc, lq in seen),
+            "decoder at Lq = 600": any(lq == 600 and not enc for _, enc, lq in seen)}
+    if not all(need.values()):
+        raise AssertionError(f"protocol: MSDA calls missing: {need}")
+    checks = {name: {f"protocol_{k[5:] if k.startswith('loop_') else k}": v
+                     for k, v in r.items()}
+              for name, r in _check_msda_calls(calls, need_grad=True,
+                                               label="protocol").items()}
+    full_shapes = lambda s: s[0] == (IMAGE_HW[0] // 8, IMAGE_HW[1] // 8)
+    timed = {}
+    for B, shapes, Lq, M, D, P, dt, grad in sorted(calls, key=str):
+        enc = Lq == sum(h * w for h, w in shapes)
+        if grad or not full_shapes(shapes):
+            continue
+        key = ("protocol_encoder_p2" if enc and P == 2 and B == 1 else
+               "protocol_decoder_p2_q300" if not enc and P == 2 and Lq == 300 and B == 1 else
+               "protocol_decoder_p4_q600" if not enc and P == 4 and Lq == 600 and B == 1 else
+               "batched_encoder_b8" if enc and P == 4 and B == 8 else None)
+        if key and key not in timed:
+            kind = "encoder" if enc else "decoder"
+            got = _time_msda_calls({(B, shapes, Lq, M, D, P, dt, grad)}, key)
+            timed[key] = {f"{key}_{s}": got[f"{key}_{kind}_{s}"]
+                          for s in ("ms", "plain_ms", "bound_ms")}
+            timed[key][f"{key}_bound_by"] = _msda_bound(
+                B, sum(h * w for h, w in shapes), Lq, M, D, len(shapes), P,
+                torch.empty((), dtype=dt).element_size())[1]
+            timed[key][f"{key}_shape"] = f"B={B} Lq={Lq} P={P} {str(dt)[6:]}"
+    if len(timed) != 4:
+        raise AssertionError(f"protocol: MSDA shapes to time missing: {sorted(timed)}")
+    for v in timed.values():
+        checks["ms_deform_attn_fwd"].update(v)
+
+    by_shape = {}
+    for rec_ in nms_calls:
+        by_shape.setdefault(tuple(rec_[1].shape), []).append(rec_)
+    need = {"N = 300": any(n == 300 for _, n in by_shape),
+            "N = 600": any(n == 600 for _, n in by_shape),
+            "B = 8": any(b == 8 for b, _ in by_shape)}
+    if not all(need.values()):
+        raise AssertionError(f"protocol: NMS inputs missing: {need}")
+    nms_rec = {"protocol_shapes": sorted(by_shape)}
+    for (B, N), recs in sorted(by_shape.items()):
+        for boxes, scores, classes, thr_, valid in recs[:2]:
+            for v in (valid, (scores > scores.median()).contiguous()):
+                got = nms.batched_nms(boxes, scores, classes, thr_, valid=v)
+                if not torch.equal(got, nms.batched_nms_plain(boxes, scores, classes, thr_,
+                                                              valid=v)):
+                    raise AssertionError(f"protocol: NMS keep mask at B={B} N={N} differs "
+                                         "from the plain version")
+        boxes, scores, classes, thr_, valid = recs[0]
+        key = ("protocol_n300" if (B, N) == (1, 300) else "protocol_n600" if (B, N) == (1, 600)
+               else "batched_b8" if B == 8 else None)
+        if key:
+            b_ms, b_by = _nms_bound(classes)
+            nms_rec.update({
+                f"{key}_ms": event_ms(lambda: nms.batched_nms(boxes, scores, classes, thr_),
+                                      50),
+                f"{key}_plain_ms": _timed(lambda: nms.batched_nms_plain(
+                    boxes, scores, classes, thr_), 2, warmup=1),
+                f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+                f"{key}_kept": int(nms.batched_nms(boxes, scores, classes, thr_).sum())})
+            print(f"[protocol] NMS B={B} N={N}: kernel {nms_rec[key + '_ms']:.4f} ms over graph "
+                  f"replays ({100 * b_ms / nms_rec[key + '_ms']:.1f}% of its bound "
+                  f"{b_ms:.5f} ms, {b_by}), plain {nms_rec[key + '_plain_ms']:.3f} ms, "
+                  f"{nms_rec[key + '_kept']} kept")
+    checks["nms"] = nms_rec
+    print("[protocol] summary " + json.dumps({
+        "paths": {p: {k: (round(v, 4) if isinstance(v, float) else v) for k, v in s.items()}
+                  for p, s in summary.items() if isinstance(s, dict) and "wall_s" in s},
+        "fps_request_ms": summary["protocol_fps_ms"],
+        "batched_rows_errors": summary["batched_rows_errors"],
+        "batched_serve_rows": [{k: r[k] for k in ("bs", "step_ms", "img_per_s", "peak_gib")}
+                               for r in summary["batched_serve_rows"]]}))
+    print(f"[protocol] NMS keep masks identical to the plain version's at {len(by_shape)} "
+          f"(B, N) shapes {sorted(by_shape)}; MSDA at {len(calls)} recorded shapes held to "
+          f"plain; phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -4131,6 +4477,9 @@ def main():
     cli, cli_checks = phase_cli()
     for name, r in cli_checks.items():
         rec[name].update(r)
+    protocol, protocol_checks = phase_protocol()
+    for name, r in protocol_checks.items():
+        rec[name].update(r)
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
     a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in a.items()
@@ -4156,6 +4505,7 @@ def main():
                    **{path: n[name] for path, n in recipe.items()},
                    **{path: n[name] for path, n in convnext.items()},
                    **{path: n[name] for path, n in cli.items()},
+                   **{path: n[name] for path, n in protocol.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")
@@ -4176,7 +4526,8 @@ def main():
                            if k in r},
                         **{k: v for k, v in r.items()
                            if k.startswith(("vis_", "mot_", "video_", "sot_", "vos_",
-                                            "rvos_", "recipe_", "convnext_", "cli_", "k2_",
+                                            "rvos_", "recipe_", "convnext_", "cli_", "protocol_",
+                                            "batched_", "k2_",
                                             "k4_",
                                             "launches_per_rank",
                                             "peak_gib_per_rank", "step_rel_err", "nccl_"))}})

@@ -29,13 +29,16 @@ import pytest
 import torch
 
 import uninext_tpu.models.detr as jdetr
-from tests.torch_port_common import (detection_inputs, detection_targets,
-                                     jax_train_init, perturb, tiny_vit_config)
+from tests.torch_port_common import (detection_inputs, detection_targets, jax_train_init,
+                                     one_torch_thread, perturb, shared_across_workers,
+                                     tiny_vit_config)
 from uninext_tpu.models import layers as jlayers
 from uninext_tpu_torch.engine import convert
 from uninext_tpu_torch.engine.train import loss_and_grads, loss_weights
 from uninext_tpu_torch.models import layers
 from uninext_tpu_torch.models.detr import build_model
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 # level shapes of an 800x1216 image (strides 8, 16, 32 and the extra level)
 SHAPES_800 = ((100, 152), (50, 76), (25, 38), (13, 19))
@@ -91,14 +94,15 @@ def test_msdeform_attn_bf16_matches_jax_at_800x1216():
 # ---- the small ViT detection slice -----------------------------------------
 
 @pytest.fixture(scope="module")
-def slice_pair():
+def slice_pair(tmp_path_factory, worker_id):
     """fp32 and bf16 configs, one perturbed JAX tree (initialised through
-    the training path, so it holds the DN label encoder), and the port's
-    bf16 model loaded from it."""
+    the training path, so it holds the DN label encoder; once per
+    session), and the port's bf16 model loaded from it."""
     c32 = tiny_vit_config()
     c16 = dataclasses.replace(c32, compute_dtype="bfloat16")
     targets = detection_targets(2, G=c32.data.max_insts)
-    params = perturb(jax_train_init(jdetr.UninextDETR(c32), detection_inputs(0), targets))
+    params = shared_across_workers("bf16_slice_pair", lambda: perturb(jax_train_init(
+        jdetr.UninextDETR(c32), detection_inputs(0), targets)), tmp_path_factory, worker_id)
     model = build_model(c16, "cpu", seed=0)
     convert.load_jax_params(model, params)
     return c32, c16, params, model, targets
@@ -108,23 +112,31 @@ OUT_KEYS = ("memory", "pred_logits", "pred_boxes", "pred_boxious")
 
 
 @pytest.fixture(scope="module")
-def slice_outputs(slice_pair):
+def slice_outputs(slice_pair, tmp_path_factory, worker_id):
     """{"j32" | "j16" | "p16": {key: [fp32 array per seed]}}: JAX fp32, JAX
-    bf16 and the port's bf16 on the inputs of SEEDS."""
+    bf16 (compiled once per session) and the port's bf16 on the inputs of
+    SEEDS."""
     c32, c16, params, model, _ = slice_pair
-    fns = {n: jax.jit(lambda p, *a, jm=jdetr.UninextDETR(c): jm.apply(p, *a))
-           for n, c in (("j32", c32), ("j16", c16))}
-    outs = {n: {k: [] for k in OUT_KEYS} for n in ("j32", "j16", "p16")}
-    for seed in SEEDS:
+
+    def jax_outputs():
+        fns = {n: jax.jit(lambda p, *a, jm=jdetr.UninextDETR(c): jm.apply(p, *a))
+               for n, c in (("j32", c32), ("j16", c16))}
+        outs = {n: {k: [] for k in OUT_KEYS} for n in fns}
+        for seed in SEEDS:
+            for n, fn in fns.items():
+                res = fn(params, *detection_inputs(seed))
+                for k in OUT_KEYS:
+                    outs[n][k].append(np.asarray(res[k]).astype(np.float32))
+        return outs
+
+    outs = {**shared_across_workers("bf16_slice_outputs", jax_outputs, tmp_path_factory,
+                                    worker_id), "p16": {k: [] for k in OUT_KEYS}}
+    for i, seed in enumerate(SEEDS):
         inputs = detection_inputs(seed)
-        for n, fn in fns.items():
-            res = fn(params, *inputs)
-            for k in OUT_KEYS:
-                outs[n][k].append(np.asarray(res[k]).astype(np.float32))
         with torch.inference_mode():
             res = model(*(_t(a) for a in inputs))
         for k in OUT_KEYS:
-            assert res[k].shape == outs["j32"][k][-1].shape, k
+            assert res[k].shape == outs["j32"][k][i].shape, k
             outs["p16"][k].append(res[k].float().numpy())
     return outs
 

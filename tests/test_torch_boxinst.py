@@ -22,9 +22,9 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import (boxinst_targets, detection_inputs, detection_targets,
-                                     dn_noise, jax_loss_and_grads, jax_train_init,
-                                     one_torch_thread, patch_image, perturb, tiny_vit_config)
+from tests.torch_port_common import (boxinst_targets, detection_inputs, detection_targets, dn_noise,
+                                     jax_loss_and_grads, one_torch_thread, patch_image, perturb,
+                                     tiny_vit_config, tiny_vit_init)
 from uninext_tpu.config import DataConfig as JDataConfig
 from uninext_tpu.data import boxinst as jbox
 from uninext_tpu.data import coco as jcoco
@@ -209,7 +209,7 @@ def test_unfold_wo_center_matches_jax():
 
 # ---- one whole step ---------------------------------------------------------------
 
-def test_boxinst_train_step_matches_jax(monkeypatch):
+def test_boxinst_train_step_matches_jax(monkeypatch, tmp_path_factory, worker_id):
     """`tiny_vit_config` (`tiny_test_config` with a 2-block ViT, the mask
     head) with `loss.boxinst`, past the pairwise term's warm-up: every loss
     (`loss_prj` and `loss_pairwise` of every decoder layer in place of the
@@ -223,7 +223,7 @@ def test_boxinst_train_step_matches_jax(monkeypatch):
     jm = JaxDETR(cfg)
     # initialised through the gt-mask path (the same tree: BoxInst adds no
     # parameter)
-    params = perturb(jax_train_init(JaxDETR(base), inputs, targets))
+    params = perturb(tiny_vit_init(tmp_path_factory, worker_id))
     model = build_model(cfg, "cpu", seed=0).train()
     convert.load_jax_params(model, params)
     extra = boxinst_targets(8, inputs, targets, step=6)

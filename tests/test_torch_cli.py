@@ -19,7 +19,6 @@ import dataclasses
 import io
 import json
 import os
-import pickle
 import re
 import sys
 
@@ -32,7 +31,7 @@ from PIL import Image
 import uninext_tpu.models.detr as jdetr
 from tests.test_torch_cli_host import _jax_tool
 from tests.test_torch_sot import _random_tree
-from tests.torch_port_common import bridge_sources, one_torch_thread
+from tests.torch_port_common import bridge_sources, one_torch_thread, shared_across_workers
 from uninext_tpu.engine import convert as jconvert
 from uninext_tpu_torch import config
 from uninext_tpu_torch.data.mini_coco import make_mini_coco, make_mini_ytvis
@@ -66,21 +65,10 @@ def _make_pth(kind, path):
 def _shared_pth(kind, tmp_path_factory, worker_id):
     """(the JAX tree, its zeros, the .pth path) of `kind`, made once for
     the session: the pytest-xdist workers share the first one's files."""
-    if worker_id == "master":
-        tree, path = _make_pth(kind, tmp_path_factory.mktemp("pth") / f"{kind}.pth")
-    else:
-        from filelock import FileLock
-        root = tmp_path_factory.getbasetemp().parent
-        path, tree_file = root / f"cli_{kind}.pth", root / f"cli_{kind}_tree.pkl"
-        with FileLock(str(root / f"cli_{kind}.lock")):
-            if tree_file.exists():
-                with open(tree_file, "rb") as f:
-                    tree = pickle.load(f)
-            else:
-                tree, _ = _make_pth(kind, path)
-                with open(tree_file, "wb") as f:
-                    pickle.dump(tree, f)
-    return tree, jax.tree.map(np.zeros_like, tree), str(path)
+    tree, path = shared_across_workers(
+        f"cli_{kind}", lambda: _make_pth(kind, tmp_path_factory.mktemp("pth") / f"{kind}.pth"),
+        tmp_path_factory, worker_id)
+    return tree, jax.tree.map(np.zeros_like, tree), path
 
 
 @pytest.fixture(scope="module")

@@ -32,9 +32,9 @@ import torch
 import uninext_tpu.config as jcfg
 from tests.test_torch_handoff import check_handoff_through_the_bridge
 from tests.test_torch_sot import _random_tree
-from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
-                                     dn_noise, init_statistics_match, jax_loss_and_grads,
-                                     perturb)
+from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets, dn_noise,
+                                     init_statistics_match, jax_loss_and_grads, one_torch_thread,
+                                     perturb, shared_across_workers)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint, convert_convnext
 from uninext_tpu.models import convnext as jconvnext
@@ -53,6 +53,8 @@ from uninext_tpu_torch.models.detr import UninextDETR, build_model, init_params
 from uninext_tpu_torch.models.layers import Conv2d
 from uninext_tpu_torch.parallel import sharding
 from uninext_tpu_torch.tools.convnext_check import tiny_convnext_cfg
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 DEPTHS, DIMS = (2, 2, 4, 2), (32, 64, 96, 128)
 H, W = 64, 96
@@ -87,18 +89,25 @@ def _trunk(dtype=torch.float32, in_channels=3, rate=0.0):
 # ---- the trunk ---------------------------------------------------------------------
 
 @pytest.fixture(scope="module", params=[3, 4], ids=["3ch", "4ch"])
-def trunk(request):
+def trunk(request, tmp_path_factory, worker_id):
+    """(channels, input, perturbed JAX tree, JAX's fp32 and bf16 levels, the
+    tree as initialised), computed once per session."""
     c = request.param
-    x = np.random.RandomState(c).randn(2, H, W, c).astype(np.float32)
-    jm = lambda dt: jconvnext.ConvNeXt(depths=DEPTHS, dims=DIMS, in_channels=c, dtype=dt)
-    raw = jax.tree.map(np.asarray, jm(jnp.float32).init(jax.random.PRNGKey(0), x))
-    params = perturb(raw, scale=0.02)
-    want = {}
-    for name, dt in (("j32", jnp.float32), ("j16", jnp.bfloat16)):
-        out = jax.jit(jm(dt).apply)(params, x)
-        assert all(out[k].dtype == jnp.float32 for k in LEVELS)   # flax's LN promotes
-        want[name] = {k: np.asarray(out[k]) for k in LEVELS}
-    return c, x, params, want, raw
+
+    def make():
+        x = np.random.RandomState(c).randn(2, H, W, c).astype(np.float32)
+        jm = lambda dt: jconvnext.ConvNeXt(depths=DEPTHS, dims=DIMS, in_channels=c, dtype=dt)
+        # the init under one jit: eagerly it compiles each op apart (the same tree)
+        raw = jax.tree.map(np.asarray, jax.jit(jm(jnp.float32).init)(jax.random.PRNGKey(0), x))
+        params = perturb(raw, scale=0.02)
+        want = {}
+        for name, dt in (("j32", jnp.float32), ("j16", jnp.bfloat16)):
+            out = jax.jit(jm(dt).apply)(params, x)
+            assert all(out[k].dtype == jnp.float32 for k in LEVELS)   # flax's LN promotes
+            want[name] = {k: np.asarray(out[k]) for k in LEVELS}
+        return c, x, params, want, raw
+
+    return shared_across_workers(f"convnext_trunk_{c}", make, tmp_path_factory, worker_id)
 
 
 def _port(params, dtype, c):

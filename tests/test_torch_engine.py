@@ -16,8 +16,8 @@ import pytest
 import torch
 
 import uninext_tpu.models.detr as jdetr
-from tests.torch_port_common import (detection_inputs, detection_targets, jax_train_init,
-                                     one_torch_thread, perturb, tiny_vit_config)
+from tests.torch_port_common import (detection_inputs, detection_targets, one_torch_thread, perturb,
+                                     tiny_vit_config, tiny_vit_init)
 from uninext_tpu.data.coco import UniDatasetMapper as JMapper
 from uninext_tpu.data.tokenizer import BertTokenizer as JTokenizer
 from uninext_tpu.engine.evaluator import DetectionEvaluator as JEvaluator
@@ -123,12 +123,12 @@ def test_coco_evaluator_matches_jax(iou_type, matcher):
 # ---- DetectionEvaluator --------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def eval_pair():
+def eval_pair(tmp_path_factory, worker_id):
     cfg = _small_cfg()
     inputs = detection_inputs(5)
     targets = detection_targets(6, G=cfg.data.max_insts)
     jm = jdetr.UninextDETR(cfg)
-    params = perturb(jax_train_init(jm, inputs, targets))
+    params = perturb(tiny_vit_init(tmp_path_factory, worker_id))
     model = build_model(cfg, "cpu", seed=0)
     convert.load_jax_params(model, params)
     return cfg, jm, params, model

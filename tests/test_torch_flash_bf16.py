@@ -33,8 +33,11 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from tests.torch_port_common import one_torch_thread
 from uninext_tpu.models import vit as jvit
 from uninext_tpu_torch.models import vit
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 @pytest.fixture

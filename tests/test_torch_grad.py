@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import TINY_LEVELS, msda_locations, perturb
+from tests.torch_port_common import TINY_LEVELS, msda_locations, one_torch_thread, perturb
 from uninext_tpu.models import vit as jvit
 from uninext_tpu.ops import msda as jmsda
 from uninext_tpu_torch.models import vit
 from uninext_tpu_torch.ops import msda
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 SHAPES = ((6, 7), (3, 4), (2, 2))
 

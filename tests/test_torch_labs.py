@@ -27,10 +27,13 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from tests.torch_port_common import one_torch_thread
 from uninext_tpu.ops import msda as jmsda
 from uninext_tpu_torch.ops import dma_gather, gather_fold
 from uninext_tpu_torch.ops.msda import ms_deform_attn_plain
 from uninext_tpu_torch.tools import msda_v6_lab
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 1e-5

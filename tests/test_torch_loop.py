@@ -37,9 +37,8 @@ import pytest
 import torch
 
 import uninext_tpu.models.detr as jdetr
-from tests.torch_port_common import (detection_inputs, detection_targets, dn_noise,
-                                     jax_train_init, one_torch_thread, perturb,
-                                     tiny_vit_config)
+from tests.torch_port_common import (dn_noise, one_torch_thread, perturb, tiny_vit_config,
+                                     tiny_vit_init)
 from uninext_tpu.config import DataConfig as JDataConfig
 from uninext_tpu.config import SolverConfig as JSolverConfig
 from uninext_tpu.data import coco as jcoco
@@ -131,11 +130,10 @@ def _moved(params, rel):
     return jax.tree_util.tree_map_with_path(one, params)
 
 
-def test_training_run_matches_jax(tmp_path, monkeypatch):
+def test_training_run_matches_jax(tmp_path, monkeypatch, tmp_path_factory, worker_id):
     cfg = _cfg()
     jm = jdetr.UninextDETR(cfg)
-    params = perturb(jax_train_init(jm, detection_inputs(3, H=64, W=64),
-                                    detection_targets(4, G=cfg.data.max_insts)))
+    params = perturb(tiny_vit_init(tmp_path_factory, worker_id))
     runs = {}
     for name, tree in (("same weights", params), ("moved by 1e-6", _moved(params, 1e-6))):
         runs[name] = build_train_state(cfg, "cpu", seed=0)
@@ -147,7 +145,9 @@ def test_training_run_matches_jax(tmp_path, monkeypatch):
     jsolver = JSolverConfig(**dataclasses.asdict(cfg.solver))
     tree = jax.tree.map(jnp.asarray, params["params"])
     tx = joptim.build_optimizer(jsolver, tree)
-    jstate, update = tx.init(tree), jax.jit(tx.update)
+    # optax over the whole tree under one jit each (eagerly: a compile per leaf shape)
+    jstate, update, apply = jax.jit(tx.init)(tree), jax.jit(tx.update), jax.jit(
+        optax.apply_updates)
     jsched = joptim.lr_schedule(jsolver)
 
     it, jit_ = _loaders(tmp_path, cfg)
@@ -163,7 +163,7 @@ def test_training_run_matches_jax(tmp_path, monkeypatch):
             # one update on each side
             (jtotal, _), grads = grad_fn(tree, jb)
             updates, jstate = update(grads, jstate, tree)
-            tree = optax.apply_updates(tree, updates)
+            tree = apply(tree, updates)
             want.append(float(jtotal))
             batch = to_device(b, torch.device("cpu"), True)
             for name, state in runs.items():

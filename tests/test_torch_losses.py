@@ -23,8 +23,8 @@ import torch
 
 import uninext_tpu.models.detr as jdetr
 from tests.torch_port_common import (detection_inputs, detection_targets, dn_noise,
-                                     jax_loss_and_grads, jax_train_init,
-                                     one_torch_thread, perturb, tiny_vit_config)
+                                     jax_loss_and_grads, one_torch_thread, perturb, tiny_vit_config,
+                                     tiny_vit_init)
 from uninext_tpu.config import LossConfig as JLossConfig
 from uninext_tpu.config import SolverConfig as JSolverConfig
 from uninext_tpu.engine import optimizer as joptim
@@ -91,14 +91,15 @@ def test_loss_masks_matches_jax():
 # ---- whole steps ------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def pair():
-    """The small ViT config's JAX model and perturbed tree, the port's model
-    loaded from it, and a batch with targets padded to max_insts."""
+def pair(tmp_path_factory, worker_id):
+    """The small ViT config's JAX model and perturbed tree (once per
+    session), the port's model loaded from it, and a batch with targets
+    padded to max_insts."""
     cfg = tiny_vit_config()
     inputs = detection_inputs(3)
     targets = detection_targets(4, G=cfg.data.max_insts)
     jm = jdetr.UninextDETR(cfg)
-    params = perturb(jax_train_init(jm, inputs, targets))
+    params = perturb(tiny_vit_init(tmp_path_factory, worker_id))
     model = build_model(cfg, "cpu", seed=0).train()
     convert.load_jax_params(model, params)
     return cfg, jm, params, model, inputs, targets

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import perturb
+from tests.torch_port_common import one_torch_thread, perturb
 from uninext_tpu.config import MaskHeadConfig as JMaskHeadConfig
 from uninext_tpu.config import tiny_test_config as jtiny
 from uninext_tpu.models import mask_head as jmask
@@ -19,6 +19,8 @@ from uninext_tpu_torch.config import MaskHeadConfig, tiny_test_config
 from uninext_tpu_torch.engine import convert
 from uninext_tpu_torch.models import mask_head
 from uninext_tpu_torch.models.detr import build_model
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _close(got, want, rel=1e-5):

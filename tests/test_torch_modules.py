@@ -8,7 +8,7 @@ import pytest
 import torch
 from torch import nn
 
-from tests.torch_port_common import perturb, tiny_vit_config
+from tests.torch_port_common import one_torch_thread, perturb, tiny_vit_config
 from uninext_tpu.models import bert as jbert
 from uninext_tpu.models import heads as jheads
 from uninext_tpu.models import layers as jlayers
@@ -17,6 +17,8 @@ from uninext_tpu.models import vl_fusion as jvl
 from uninext_tpu_torch.engine import convert
 from uninext_tpu_torch.models import bert, heads, layers, transformer, vl_fusion
 from uninext_tpu_torch.models.detr import UninextDETR
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 CFG = tiny_vit_config()
 

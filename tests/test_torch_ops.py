@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from tests.torch_port_common import (MSDA_GEOMETRIES, TINY_LEVELS, msda_locations,
-                                     perturb)
+                                     one_torch_thread, perturb)
 from uninext_tpu.models import layers as jlayers
 from uninext_tpu.models import position_encoding as jpos
 from uninext_tpu.models import vit as jvit
@@ -26,6 +26,8 @@ from uninext_tpu_torch.engine import convert
 from uninext_tpu_torch.models import layers, position_encoding, vit
 from uninext_tpu_torch.ops import msda, nms
 from uninext_tpu_torch.utils import box_ops, misc
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _np(x):

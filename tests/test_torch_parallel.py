@@ -26,7 +26,7 @@ import torch
 import uninext_tpu.models.detr as jdetr
 from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
                                      dn_noise, one_torch_thread, parallel_step_rank,
-                                     tiny_vit_config)
+                                     shared_across_workers, tiny_vit_config)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.train import TrainState, make_train_step
 from uninext_tpu.parallel import sharding as jsharding
@@ -236,55 +236,64 @@ LEAVES = {   # port parameter -> what the comparison calls it
 
 
 @pytest.fixture(scope="module")
-def tp_step(vit_tree, tmp_path_factory):
+def tp_step(vit_tree, tmp_path_factory, worker_id):
     """JAX's `make_train_step(mesh 2x2, tp=True)` and the port's 4 ranks
     (2 dp x 2 tp, gloo) on the same weights, batch and DN noise. The clip
     limit is raised so that Adam's first moment is 0.1 x the gradient, which
-    gives JAX's grad norm."""
-    cfg, jm, params, inputs, targets = vit_tree
-    cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, grad_clip=1e6))
-    jm = jdetr.UninextDETR(cfg)
-    real = jdetr.prepare_dn_static
-    mp = pytest.MonkeyPatch()
-    mp.setattr(jdetr, "prepare_dn_static",
-               lambda gb, gv, le, rng, bns, **kw: real(gb, gv, le, DN_KEY, bns, **kw))
-    jbatch = {"images": inputs[0], "img_mask": inputs[1], "image_sizes": inputs[2],
-              "text_ids": inputs[3], "text_mask": inputs[4],
-              "targets": {"boxes": targets[0], "valid": targets[1],
-                          "positive_map": targets[2]}}
-    mesh = jax_mesh(2, devices=jax.devices()[:4])
-    try:
-        with jax.set_mesh(mesh):
-            tx = joptim.build_optimizer(cfg.solver, params["params"])
-            state = TrainState(step=jnp.zeros((), jnp.int32),
-                               params=jsharding.shard_tree(params["params"], mesh),
-                               opt_state=jsharding.shard_tree(tx.init(params["params"]), mesh),
-                               tx=tx)
-            step = make_train_step(jm, cfg, "detection", mesh=mesh, has_masks=False, tp=True)
-            new_state, metrics = step(state, jax.device_put(jbatch, jax_shard_batch(mesh)),
-                                      jax.random.PRNGKey(1))
-            jax_params = jax.tree.map(np.asarray, new_state.params)
-            jax_mu = {}
-            for st in new_state.opt_state[1].inner_states.values():
-                adam = st.inner_state[0] if st.inner_state else None
-                if hasattr(adam, "mu"):
-                    for path, leaf in jax.tree_util.tree_leaves_with_path(adam.mu):
-                        jax_mu["/".join(p.key for p in path)] = np.asarray(leaf)
-            jax_metrics = {k: float(v) for k, v in metrics.items()}
-    finally:
-        mp.undo()
-    out = tmp_path_factory.mktemp("tp_step")
-    torch.save(convert.state_dict_from_jax(params), out / "whole.pt")
-    t = torch.from_numpy
-    batch = {"images": t(inputs[0]), "img_mask": t(inputs[1]), "image_sizes": t(inputs[2]),
-             "text_ids": t(inputs[3]).long(), "text_mask": t(inputs[4]),
-             "targets": {"boxes": t(targets[0]), "valid": t(targets[1]),
-                         "positive_map": t(targets[2]), "has_masks": False}}
-    single_pad = min(detr.DN_SINGLE_PAD, cfg.data.max_insts)
-    noise = dn_noise(DN_KEY, 2, single_pad)
-    ranks = launch(parallel_step_rank, 4, "gloo", "cpu", cfg, 2, str(out / "whole.pt"),
-                   batch, noise, str(out / "ckpt"))
-    return cfg, jax_metrics, jax_params, jax_mu, ranks, out
+    gives JAX's grad norm. Computed once per session (JAX's TP step
+    compiles for about two minutes); the ranks' checkpoint stays in the
+    first worker's temporary directory."""
+    def make():
+        cfg, jm, params, inputs, targets = vit_tree
+        cfg = dataclasses.replace(cfg, solver=dataclasses.replace(cfg.solver, grad_clip=1e6))
+        jm = jdetr.UninextDETR(cfg)
+        real = jdetr.prepare_dn_static
+        mp = pytest.MonkeyPatch()
+        mp.setattr(jdetr, "prepare_dn_static",
+                   lambda gb, gv, le, rng, bns, **kw: real(gb, gv, le, DN_KEY, bns, **kw))
+        jbatch = {"images": inputs[0], "img_mask": inputs[1], "image_sizes": inputs[2],
+                  "text_ids": inputs[3], "text_mask": inputs[4],
+                  "targets": {"boxes": targets[0], "valid": targets[1],
+                              "positive_map": targets[2]}}
+        mesh = jax_mesh(2, devices=jax.devices()[:4])
+        try:
+            with jax.set_mesh(mesh):
+                tx = joptim.build_optimizer(cfg.solver, params["params"])
+                state = TrainState(step=jnp.zeros((), jnp.int32),
+                                   params=jsharding.shard_tree(params["params"], mesh),
+                                   opt_state=jsharding.shard_tree(tx.init(params["params"]),
+                                                                  mesh),
+                                   tx=tx)
+                step = make_train_step(jm, cfg, "detection", mesh=mesh, has_masks=False,
+                                       tp=True)
+                new_state, metrics = step(state,
+                                          jax.device_put(jbatch, jax_shard_batch(mesh)),
+                                          jax.random.PRNGKey(1))
+                jax_params = jax.tree.map(np.asarray, new_state.params)
+                jax_mu = {}
+                for st in new_state.opt_state[1].inner_states.values():
+                    adam = st.inner_state[0] if st.inner_state else None
+                    if hasattr(adam, "mu"):
+                        for path, leaf in jax.tree_util.tree_leaves_with_path(adam.mu):
+                            jax_mu["/".join(p.key for p in path)] = np.asarray(leaf)
+                jax_metrics = {k: float(v) for k, v in metrics.items()}
+        finally:
+            mp.undo()
+        out = tmp_path_factory.mktemp("tp_step")
+        torch.save(convert.state_dict_from_jax(params), out / "whole.pt")
+        t = torch.from_numpy
+        batch = {"images": t(inputs[0]), "img_mask": t(inputs[1]),
+                 "image_sizes": t(inputs[2]),
+                 "text_ids": t(inputs[3]).long(), "text_mask": t(inputs[4]),
+                 "targets": {"boxes": t(targets[0]), "valid": t(targets[1]),
+                             "positive_map": t(targets[2]), "has_masks": False}}
+        single_pad = min(detr.DN_SINGLE_PAD, cfg.data.max_insts)
+        noise = dn_noise(DN_KEY, 2, single_pad)
+        ranks = launch(parallel_step_rank, 4, "gloo", "cpu", cfg, 2, str(out / "whole.pt"),
+                       batch, noise, str(out / "ckpt"))
+        return cfg, jax_metrics, jax_params, jax_mu, ranks, out
+
+    return shared_across_workers("parallel_tp_step", make, tmp_path_factory, worker_id)
 
 
 def _jax_leaf(params, path):

@@ -21,9 +21,10 @@ import optax
 import pytest
 import torch
 
-from tests.torch_port_common import (bridge_sources, boxinst_targets, detection_inputs,
+from tests.torch_port_common import (boxinst_targets, bridge_sources, detection_inputs,
                                      detection_targets, dn_noise, init_statistics_match,
-                                     jax_loss_and_grads, jax_train_init, perturb)
+                                     jax_loss_and_grads, jax_train_init, one_torch_thread, perturb,
+                                     shared_across_workers)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
@@ -38,6 +39,8 @@ from uninext_tpu_torch.models.detr import build_model
 from uninext_tpu_torch.models.postprocess import (postprocess_detection, postprocess_instseg,
                                                   postprocess_rec)
 
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 DN_KEY = jax.random.PRNGKey(321)
 BB = "detr.detr.backbone.0.backbone."
 
@@ -47,14 +50,17 @@ def _t(x):
 
 
 @pytest.fixture(scope="module")
-def initial():
-    """The JAX model and its tree as initialised, before the perturbation."""
+def initial(tmp_path_factory, worker_id):
+    """The JAX model and its tree as initialised, before the perturbation
+    (the init compiles once per session)."""
     cfg = tiny_test_config()
     assert cfg.backbone.name == "resnet50" and cfg.mask_head.enabled
     inputs = detection_inputs(0)
     targets = detection_targets(2, G=cfg.data.max_insts)
     jm = JaxDETR(cfg)
-    return cfg, inputs, targets, jm, jax_train_init(jm, inputs, targets)
+    params = shared_across_workers("r50_initial", lambda: jax_train_init(jm, inputs, targets),
+                                   tmp_path_factory, worker_id)
+    return cfg, inputs, targets, jm, params
 
 
 @pytest.fixture(scope="module")
@@ -67,12 +73,16 @@ def pair(initial):
 
 
 @pytest.fixture(scope="module")
-def served(pair):
-    """Both frameworks' inference outputs for the two tasks."""
+def served(pair, tmp_path_factory, worker_id):
+    """Both frameworks' inference outputs for the two tasks (JAX's compiled
+    once per session)."""
     cfg, inputs, _, jm, params, model = pair
-    want, got = {}, {}
+    want = shared_across_workers("r50_served", lambda: {
+        task: jax.tree.map(np.asarray, jax.jit(
+            lambda p, t=task: jm.apply(p, *inputs, task=t))(params))
+        for task in ("detection", "grounding")}, tmp_path_factory, worker_id)
+    got = {}
     for task in ("detection", "grounding"):
-        want[task] = jax.jit(lambda p, t=task: jm.apply(p, *inputs, task=t))(params)
         with torch.inference_mode():
             got[task] = model(*map(_t, inputs), task=task)
     return want, got
@@ -312,14 +322,18 @@ def test_r50_train_step_matches_jax(pair, monkeypatch):
     frozen = {n: p.detach().clone() for n, p in model.named_parameters()
               if n in opt.names["frozen"]}
     norm = opt.step()
-    np.testing.assert_allclose(float(norm), float(optax.global_norm(jgrads)), rtol=1e-4)
+    # optax's functions over the whole tree under one jit: run eagerly they
+    # compile one small computation per leaf shape
+    np.testing.assert_allclose(float(norm), float(jax.jit(optax.global_norm)(jgrads)),
+                               rtol=1e-4)
     assert float(norm) > cfg.solver.grad_clip              # the clip acts
     for n, p in model.named_parameters():
         if n in frozen:
             assert torch.equal(p, frozen[n]), n
     tx = joptim.build_optimizer(cfg.solver, params["params"])
-    updates, _ = jax.jit(tx.update)(jgrads, tx.init(params["params"]), params["params"])
-    jnew = optax.apply_updates(params["params"], updates)
+    updates, _ = jax.jit(tx.update)(jgrads, jax.jit(tx.init)(params["params"]),
+                                    params["params"])
+    jnew = jax.jit(optax.apply_updates)(params["params"], updates)
     new = as_tree(dict(model.named_parameters()))
     lr = optim.group_learning_rates(cfg.solver)
     jgrad_leaves = dict(jax.tree_util.tree_leaves_with_path(jgrads))

@@ -15,26 +15,34 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from tests.torch_port_common import perturb
+from tests.torch_port_common import one_torch_thread, perturb, shared_across_workers
 from uninext_tpu.engine.convert import convert_resnet
 from uninext_tpu.models import resnet as jresnet
 from uninext_tpu_torch.engine import convert
 from uninext_tpu_torch.models import resnet
 from uninext_tpu_torch.models.layers import Conv2d
 
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
+
 H, W = 72, 104
 LEVELS = ("res3", "res4", "res5")
 
 
 @pytest.fixture(scope="module")
-def trunk():
-    x = np.random.RandomState(0).randn(2, H, W, 3).astype(np.float32)
-    params = perturb(jresnet.ResNet(depth=50).init(jax.random.PRNGKey(0), x),
-                     scale=0.02)
-    want = {n: jax.jit(lambda p, a, m=jresnet.ResNet(depth=50, dtype=dt): m.apply(p, a))(
-                params, x) for n, dt in (("j32", jnp.float32), ("j16", jnp.bfloat16))}
-    return x, params, {n: {k: np.asarray(v[k]).astype(np.float32) for k in LEVELS}
-                       for n, v in want.items()}
+def trunk(tmp_path_factory, worker_id):
+    """Input, perturbed JAX tree and JAX's fp32 and bf16 levels (computed
+    once per session)."""
+    def make():
+        x = np.random.RandomState(0).randn(2, H, W, 3).astype(np.float32)
+        # the init under one jit: eagerly it compiles each op apart (the same tree)
+        params = perturb(jax.jit(jresnet.ResNet(depth=50).init)(jax.random.PRNGKey(0), x),
+                         scale=0.02)
+        want = {n: jax.jit(lambda p, a, m=jresnet.ResNet(depth=50, dtype=dt): m.apply(p, a))(
+                    params, x) for n, dt in (("j32", jnp.float32), ("j16", jnp.bfloat16))}
+        return x, params, {n: {k: np.asarray(v[k]).astype(np.float32) for k in LEVELS}
+                           for n, v in want.items()}
+
+    return shared_across_workers("resnet_trunk", make, tmp_path_factory, worker_id)
 
 
 def _port(params, dtype):

@@ -18,9 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import (detection_inputs, detection_targets,
-                                     jax_train_init, one_torch_thread, perturb,
-                                     tiny_vit_config)
+from tests.torch_port_common import (detection_inputs, one_torch_thread, perturb, tiny_vit_config,
+                                     tiny_vit_init)
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
 from uninext_tpu.models.postprocess import postprocess_detection as jax_post
@@ -32,13 +31,13 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture(scope="module")
-def pair():
+def pair(tmp_path_factory, worker_id):
     cfg = tiny_vit_config()
     inputs = detection_inputs(0)
     jm = JaxDETR(cfg)
     # initialised through the training path, so the tree also holds the DN
     # label encoder (`dn_resizer`), which the port's model has
-    params = perturb(jax_train_init(jm, inputs, detection_targets(0)))
+    params = perturb(tiny_vit_init(tmp_path_factory, worker_id))
     model = build_model(cfg, "cpu", seed=0)
     load_jax_params(model, params)
     return cfg, inputs, jm, params, model
@@ -110,7 +109,9 @@ def test_port_runs_without_jax():
     recipe's modules (BoxInst's targets, the recipe's three fixture tools),
     and importing every command-line tool and the host modules under it
     (the registry, the SOT loaders, the submission writers) with
-    `train_net --eval-only` on a mini-COCO from a reference `.pth`, run
+    `train_net --eval-only` on a mini-COCO from a reference `.pth`, and
+    the eval protocol's cut (a model cut to 16 queries and 2 + 2 points
+    serving a batch of 2) with its tools imported, run
     with jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) blocked from import and leave them out of
     sys.modules: the H100 machine runs the port without them."""
@@ -180,6 +181,16 @@ def test_port_runs_without_jax():
         assert inst["mask_logits"].shape == (2, 100, 16, 24)
         assert rec["mask_logits"].shape == (2, 1, 16, 24) and rec["box"].shape == (2, 4)
         assert torch.isfinite(inst["mask_logits"]).all() and torch.isfinite(rec["box"]).all()
+        # the eval protocol: the model cut to 16 queries and 2 + 2 points,
+        # serving a batch of 2 with a batch-1 prompt expanded to it
+        from uninext_tpu_torch.engine.protocol import adapted_model
+        from uninext_tpu_torch.tools import frontier_merge, frontier_sweep, serve_throughput
+        small, _ = adapted_model(model, r50, num_queries=16, enc_n_points=2, dec_n_points=2,
+                                 device="cpu")
+        with torch.inference_mode():
+            lang = serve_throughput.expand_prompt(small.encode_text(ids[:1], tmask[:1]), 2)
+            out = small(images, img_mask, sizes, None, lang["masks"], lang_dict=lang)
+        assert out["pred_boxes"].shape == (2, 16, 4) and torch.isfinite(out["pred_boxes"]).all()
         state = build_train_state(r50, "cpu", seed=4)
         metrics = train_step(state, {"images": images, "img_mask": img_mask,
                                      "image_sizes": sizes,

@@ -21,9 +21,9 @@ import pytest
 import torch
 
 import uninext_tpu.models.detr as jdetr
-from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
-                                     dn_noise, jax_loss_and_grads, jax_train_init,
-                                     perturb, tiny_vit_config)
+from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets, dn_noise,
+                                     jax_loss_and_grads, one_torch_thread, perturb, tiny_vit_config,
+                                     tiny_vit_init)
 from uninext_tpu.config import LossConfig as JLossConfig
 from uninext_tpu.config import SolverConfig as JSolverConfig
 from uninext_tpu.engine import optimizer as joptim
@@ -39,6 +39,8 @@ from uninext_tpu_torch.engine.train import loss_and_grads, loss_weights, weighte
 from uninext_tpu_torch.models import criterion as crit
 from uninext_tpu_torch.models import detr, matcher
 from uninext_tpu_torch.models.detr import build_model
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 
 def _np(x):
@@ -172,15 +174,16 @@ def test_weighted_total_matches_jax():
 # ---- optimizer ---------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def pair():
+def pair(tmp_path_factory, worker_id):
     """The small ViT config's JAX model and parameter tree (initialised
-    through its training path, perturbed), the port's model loaded from
-    it, and a batch: inputs and targets padded to max_insts."""
+    through its training path, perturbed; once per session), the port's
+    model loaded from it, and a batch: inputs and targets padded to
+    max_insts."""
     cfg = tiny_vit_config()
     inputs = detection_inputs(1)
     targets = detection_targets(2, G=cfg.data.max_insts)
     jm = jdetr.UninextDETR(cfg)
-    params = perturb(jax_train_init(jm, inputs, targets))
+    params = perturb(tiny_vit_init(tmp_path_factory, worker_id))
     model = build_model(cfg, "cpu", seed=0)
     convert.load_jax_params(model, params)
     return cfg, jm, params, model, inputs, targets

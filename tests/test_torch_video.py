@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
-                                     one_torch_thread, perturb)
+                                     one_torch_thread, perturb, shared_across_workers)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.engine.train import loss_weights as jax_loss_weights
@@ -94,18 +94,24 @@ def _port_targets(t):
 
 
 @pytest.fixture(scope="module")
-def pair():
+def pair(tmp_path_factory, worker_id):
     cfg = video_config()
     inputs, images_ref, tk, tr = _video_batch(cfg.data.max_insts)
     jm = JaxDETR(cfg)
-    params = jax.jit(lambda r: jm.init(
-        {"params": r, "dn": jax.random.fold_in(r, 1)}, *inputs, _jax_targets(tk),
-        _jax_targets(tr), images_ref, method=JaxDETR.forward_video_train))(
-        jax.random.PRNGKey(0))
-    params = perturb(jax.tree.map(np.asarray, params), scale=0.02)
-    # the last layer's boxes e^2 times wider and taller, so that they
-    # overlap and NMS suppresses (at 64x96 the proposals are a few pixels)
-    params["params"]["bbox_embed_1"]["layer_2"]["bias"][2:] += 2.0
+
+    def init():
+        params = jax.jit(lambda r: jm.init(
+            {"params": r, "dn": jax.random.fold_in(r, 1)}, *inputs, _jax_targets(tk),
+            _jax_targets(tr), images_ref, method=JaxDETR.forward_video_train))(
+            jax.random.PRNGKey(0))
+        params = perturb(jax.tree.map(np.asarray, params), scale=0.02)
+        # the last layer's boxes e^2 times wider and taller, so that they
+        # overlap and NMS suppresses (at 64x96 the proposals are a few pixels)
+        params["params"]["bbox_embed_1"]["layer_2"]["bias"][2:] += 2.0
+        return params
+
+    # the init compiles the whole video training path: once per session
+    params = shared_across_workers("video_pair_params", init, tmp_path_factory, worker_id)
     model = build_model(cfg, "cpu", seed=0)
     convert.load_jax_params(model, params)
     return cfg, inputs, images_ref, tk, tr, jm, params, model
@@ -278,8 +284,10 @@ def test_video_train_step_matches_jax(pair):
     opt = optim.AdamW(model.named_parameters(), cfg.solver)
     opt.step()
     tx = joptim.build_optimizer(cfg.solver, params["params"])
-    updates, _ = jax.jit(tx.update)(jgrads, tx.init(params["params"]), params["params"])
-    jnew = optax.apply_updates(params["params"], updates)
+    # optax over the whole tree under one jit each (eagerly: a compile per leaf shape)
+    updates, _ = jax.jit(tx.update)(jgrads, jax.jit(tx.init)(params["params"]),
+                                    params["params"])
+    jnew = jax.jit(optax.apply_updates)(params["params"], updates)
     new = as_tree(dict(model.named_parameters()))
     lr = cfg.solver.lang_lr * optim.lr_schedule(cfg.solver)(0)
     bert = 0
@@ -340,11 +348,12 @@ def test_loss_reid_static_matches_jax(case):
     elif case == "row_invalid":
         row_valid[[0, 5]] = 0
     jfn = lambda c, s: jcrit.loss_reid_static(c, labels, row_valid, s)
-    jl = jfn(contrast, cos)
+    jl = jax.jit(jfn)(contrast, cos)
     c, s = _t(contrast).requires_grad_(), _t(cos).requires_grad_()
     got = crit.loss_reid_static(c, _t(labels), _t(row_valid), s)
     sum(got.values()).backward()
-    jgrad = jax.grad(lambda c, s: sum(jfn(c, s).values()), argnums=(0, 1))(contrast, cos)
+    jgrad = jax.jit(jax.grad(lambda c, s: sum(jfn(c, s).values()), argnums=(0, 1)))(contrast,
+                                                                                      cos)
     for k in ("loss_reid", "loss_reid_aux"):
         np.testing.assert_allclose(got[k].detach().numpy(), np.asarray(jl[k]), rtol=1e-5,
                                    err_msg=k)

@@ -12,10 +12,12 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import perturb
+from tests.torch_port_common import one_torch_thread, perturb
 from uninext_tpu.models.vit import ViT as JViT
 from uninext_tpu_torch.engine import convert
 from uninext_tpu_torch.models.vit import ViT
+
+pytestmark = pytest.mark.usefixtures(one_torch_thread.__name__)
 
 KW = dict(patch_size=16, embed_dim=32, depth=4, num_heads=2, window_size=4,
           global_blocks=(1, 3), rel_pos_init_size=8)

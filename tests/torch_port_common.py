@@ -176,6 +176,19 @@ def jax_train_init(jax_model, inputs, targets, seed=0):
     return jax.tree.map(np.asarray, params)
 
 
+def tiny_vit_init(tmp_path_factory, worker_id):
+    """`jax_train_init` of `tiny_vit_config()` with key 0, once per session
+    (`shared_across_workers`). Flax draws every parameter from the key and
+    its module's path: the variants of `tiny_vit_config` that the tests use
+    (other data and solver settings) and their inputs give this tree bit for
+    bit, so their files share its one init compile."""
+    from uninext_tpu.models.detr import UninextDETR
+
+    return shared_across_workers("tiny_vit_init", lambda: jax_train_init(
+        UninextDETR(tiny_vit_config()), detection_inputs(0), detection_targets(0)),
+        tmp_path_factory, worker_id)
+
+
 def init_statistics_match(got, want, min_extremes=4096):
     """Two trees of one layout (numpy leaves), `got` the port's random
     init carried over by the bridge's names and `want` JAX's `init`, held
@@ -287,6 +300,31 @@ def bridge_sources(params):
 
     convert.fill_model(Recorder(), "", lv, "")
     return sources
+
+
+def shared_across_workers(name, make, tmp_path_factory, worker_id):
+    """`make()` once for the test session. A module-scoped fixture runs again
+    on every pytest-xdist worker that takes one of its module's tests, and
+    with it the JAX compiles behind it; here the first worker to ask pickles
+    the value (numpy arrays, floats, configs) into the session's shared
+    temporary directory, and the others wait for it and load it. `name`
+    must name what `make` computes, arguments included."""
+    import pickle
+
+    if worker_id == "master":
+        return make()
+    from filelock import FileLock
+
+    root = tmp_path_factory.getbasetemp().parent
+    path = root / f"shared_{name}.pkl"
+    with FileLock(str(root / f"shared_{name}.lock")):
+        if path.exists():
+            with open(path, "rb") as f:
+                return pickle.load(f)
+        value = make()
+        with open(path, "wb") as f:
+            pickle.dump(value, f, protocol=pickle.HIGHEST_PROTOCOL)
+        return value
 
 
 @pytest.fixture(scope="module")
