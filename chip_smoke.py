@@ -11,8 +11,9 @@ the stage hand-off, the routed image and video stages), ConvNeXt-L's
 image and video presets (serving, training, the hand-off, SOT/VOS/R-VOS
 and the SOT step) with a RoBERTa request, the command-line tools (training,
 evaluation, the demo, SegInW, the VOT adapter, reference checkpoints), the
-eval protocol and batched serving (the frontier and throughput tools) and
-the labs (`tools/`).
+eval protocol and batched serving (the frontier and throughput tools), the
+rest of the video family (the R-VOS diagnostic, the tracker grid search
+over dumped detections, ViT-H SOT training) and the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -230,6 +231,28 @@ nonzero):
      held to its plain version at every shape they gave it (P = 2 in the
      encoder and the decoder, Lq = 300 and 600) and timed at four, NMS's
      keep masks at N = 300, 600, 900 and B up to 8, timed at three.
+  22. the rest of the video family (`phase_video_tools`): `python -m
+     uninext_tpu_torch.tools.rvos_diag --steps 20 --temporal-weights 0 0.3`
+     (the R-VOS fixture, the small config trained on grounding pairs: MSDA
+     12 and MSDA-bwd 8 a step, MSDA 4 a frame step; both arms' numbers
+     finite and in [0, 1], 24 frames each); `eval_video --task mot
+     --dump-dets` with `video_joint_r50` at full width (the last layer's
+     class and IoU biases lifted by 5 and 4 so that there are tracks; MSDA
+     14, NMS 1 a frame) on phase 20's BDD layout with its labels json, then
+     `grid_search_track` over the cache (host only, no launch; an obj
+     threshold below the cache's floor refused), and `associate` at the
+     preset's thresholds (init 0.5, obj 0.3) on the cache giving back
+     `eval_video`'s `box_track.json`; phase 14's step on
+     `video_joint_vit_huge` (1416.84M parameters, two ViT-H towers; 1
+     warm-up and 3 timed steps; per step A 96 of which 32 recomputes, A-bwd
+     64, MSDA 18 of which 6 recomputes, MSDA-bwd 12; the template tower's
+     block 0 moves, the frozen BERT gets no gradient), and kernels A and
+     A-bwd at the template tower's shapes (global 2x16x16, 8 windows of
+     14x14), each from a CUDA graph replay against its plain version,
+     timed beside its bound and SDPA's forward and backward; paths
+     "rvos_diag", "mot_dump", "sot_vith_training"; MSDA and MSDA-bwd held to
+     their plain versions at every shape the tools gave them, NMS's keep
+     masks at the dump's inputs.
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -349,6 +372,20 @@ def _bound(nbytes, ops, kind):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / PEAK[kind] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _a_bwd_bound(B, h, w, nh, hd, dtype):
+    """A-bwd's bound at (B, h, w): q, k, v, dO, O read and dq, dk, dv
+    written once in `dtype`, the fp32 logsumexp read, the bias tables read
+    and their gradients written; 10 S^2 hd products a head (the score,
+    dP, dV, dQ, dK matmuls) and those of the bias tables. Returns (ms,
+    what bounds it)."""
+    import torch
+    e = 2 if dtype == torch.bfloat16 else 4
+    S = h * w
+    return _bound(e * 8 * B * S * nh * hd + 4 * B * nh * S + 2 * e * (h * h * hd + w * w * hd),
+                  B * nh * (10 * S * S * hd + 6 * S * (h + w) * hd),
+                  "bf16" if e == 2 else "fp32")
 
 
 def _attention_inputs(dev, g, B, h, w, nh=16, hd=80):
@@ -706,12 +743,7 @@ def phase_backward_kernels():
             lib = _timed(lambda: torch.autograd.grad(lout, leaves, lcot, retain_graph=True),
                          10 if bf16 else 3)
             del lout, leaves, bias, sq, sk, sv
-            e = 2 if bf16 else 4
-            b_ms, b_by = _bound(
-                e * 8 * Bw * S * nh * hd + 4 * Bw * nh * S
-                + 2 * e * (h * h * hd + w * w * hd),
-                Bw * nh * (10 * S * S * hd + 6 * S * (h + w) * hd),
-                "bf16" if bf16 else "fp32")
+            b_ms, b_by = _a_bwd_bound(Bw, h, w, nh, hd, dt)
             print(f"[kernel A-bwd] {name} {label} B={Bw} {h}x{w} nh={nh} hd={hd} "
                   f"{str(dt)[6:]}: max_abs_err dqkv/dRh/dRw = "
                   + "/".join(f"{e:.3g}" for e in errs) + ", / max |grad| = "
@@ -1501,6 +1533,9 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
 BACKBONE_PARAMS = {
     "resnet50": (("stem.", "res2."), "res3.0.conv2.weight"),
     "convnext_large": (("downsample_layers.0.",), "stages.1.0.pwconv1.weight"),
+    # JAX's classify_param freezes no leaf of a ViT (no stem, res2_block,
+    # mean or var on its paths); block 0 is a windowed block
+    "vit_huge": ((), "blocks.0.attn.qkv.weight"),
 }
 
 
@@ -2016,6 +2051,26 @@ def _video_train_batch(cfg, dev):
                             "masks": masks(boxes_r, valid_r), "has_masks": True}}
 
 
+def _reid_msda(cfg):
+    """MSDA launches of the reid head in a forward of `cfg`'s model."""
+    return cfg.n_layer_deformable_reid if cfg.use_reid and cfg.use_deformable_reid else 0
+
+
+def _video_pair_msda(cfg):
+    """MSDA launches of a two-frame (key, ref) training step of `cfg`:
+    (forward, of them recomputes, backward). Forward: both frames' encoders
+    and decoders and the deformable reid head on both, and the recompute of
+    both encoders; backward: the key frame's encoder and decoder, the ref
+    frame's encoder (the reid head attends to its memory), the reid head on
+    both, and the ref decoder unless `detach_reid` stops its states."""
+    t = cfg.transformer
+    n_reid = _reid_msda(cfg)
+    n_remat = t.enc_layers if cfg.remat_encoder else 0
+    return (2 * (t.enc_layers + t.dec_layers + n_reid + n_remat), 2 * n_remat,
+            2 * t.enc_layers + t.dec_layers + 2 * n_reid
+            + (0 if cfg.detach_reid else t.dec_layers))
+
+
 def phase_video_training(cfg, n_steps: int):
     """The two-frame training step of `video_joint_r50` at full width
     (`engine/train.py:train_step` on a pair batch: one R50 pass over the 2B clip, two
@@ -2051,19 +2106,10 @@ def phase_video_training(cfg, n_steps: int):
     torch.cuda.synchronize()
     print(f"[video training] warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms")
     counters = _counters()
-    t = cfg.transformer
-    n_reid = cfg.n_layer_deformable_reid
-    n_remat = t.enc_layers if cfg.remat_encoder else 0
-    # forward: both frames' encoders and decoders and the reid head on both;
-    # the recompute of both encoders. Backward: the key frame's encoder and
-    # decoder, the ref frame's encoder (the reid head attends to its
-    # memory), the reid head on both; the ref decoder's outputs are all
-    # stopped (its heads and references, and with detach_reid its states)
-    expect = {**dict.fromkeys(counters, 0),
-              "ms_deform_attn_fwd": 2 * (t.enc_layers + t.dec_layers + n_reid + n_remat),
-              "ms_deform_attn_bwd": 2 * t.enc_layers + t.dec_layers + 2 * n_reid
-              + (0 if cfg.detach_reid else t.dec_layers)}
-    expect_recompute = {"ms_deform_attn_fwd": 2 * n_remat}
+    fwd, n_recompute, bwd = _video_pair_msda(cfg)
+    expect = {**dict.fromkeys(counters, 0), "ms_deform_attn_fwd": fwd,
+              "ms_deform_attn_bwd": bwd}
+    expect_recompute = {"ms_deform_attn_fwd": n_recompute}
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
@@ -2426,19 +2472,23 @@ def phase_sot_serving(cfg, label: str = "video_joint_r50"):
 
 
 def phase_sot_training(cfg, n_steps: int, label: str = "video_joint_r50"):
-    """The SOT training step of `video_joint_r50` at full width
-    (`engine/train.py:train_step(task="sot")` on a pair batch at bs=2, key
-    and ref at IMAGE_HW with masks: the ref frame's template crop with its
-    gt mask as 4th channel through the 4-channel template R50, the fuser
-    and adjust_layer, then a grounding pass with DN queries on the key
-    frame, its losses scaled by `sot_loss_scale`), 1 warm-up and `n_steps`
-    timed steps. Launches per step asserted (MSDA: the key frame's encoder,
-    its recompute and the decoder; MSDA-bwd: the encoder and the decoder;
-    no reid head). A res3 convolution of the template backbone moves, its
-    stem and res2 stay bit-equal (with the whole frozen group); `sot_fuser`
-    and `adjust_layer` move; the frozen BERT gets no gradient and decays as
-    in phase 11. MSDA and MSDA-bwd against their plain versions at the
-    step's shapes. Returns (launches, MSDA checks)."""
+    """The SOT training step of `video_joint_r50` (or another video
+    preset) at full width (`engine/train.py:train_step(task="sot")` on a
+    pair batch at bs=2, key and ref at IMAGE_HW with masks: the ref frame's
+    template crop with its gt mask as 4th channel through the 4-channel
+    template backbone, the fuser and adjust_layer, then a grounding pass
+    with DN queries on the key frame, its losses scaled by
+    `sot_loss_scale`), 1 warm-up and `n_steps` timed steps. Launches per
+    step asserted (MSDA: the key frame's encoder, its recompute and the
+    decoder; MSDA-bwd: the encoder and the decoder; no reid head; with a
+    ViT, kernel A in every block of both towers and again in the key
+    tower's recompute, A-bwd in every block of both), recomputes
+    included. A trunk weight of the template backbone past its frozen
+    prefixes (`BACKBONE_PARAMS`) moves, the frozen group stays bit-equal
+    (R50: the template's stem and res2); `sot_fuser` and `adjust_layer`
+    move; the frozen BERT gets no gradient and decays as in phase 11. MSDA
+    and MSDA-bwd against their plain versions at the step's shapes.
+    Returns (launches, MSDA checks)."""
     import torch
     from uninext_tpu_torch.engine.train import build_train_state, train_step
     dev = torch.device("cuda")
@@ -2446,7 +2496,7 @@ def phase_sot_training(cfg, n_steps: int, label: str = "video_joint_r50"):
     state = build_train_state(cfg, seed=0, template=True)
     batch = _video_train_batch(cfg, dev)
     params = dict(state.model.named_parameters())
-    frozen = {n: params[n].detach().clone() for n in state.optimizer.names["frozen"]}
+    frozen = {n: params[n].detach().clone() for n in state.optimizer.names.get("frozen", [])}
     tb = "detr.detr.ref_backbone.0.backbone."
     frozen_prefixes, trains = BACKBONE_PARAMS[cfg.backbone.name]
     template_frozen = [n for n in frozen if n.startswith(tb)]
@@ -2471,12 +2521,25 @@ def phase_sot_training(cfg, n_steps: int, label: str = "video_joint_r50"):
           f"before the clip {warm:.6g}")
     if not math.isfinite(warm):
         raise AssertionError(f"sot training warm-up step: grad norm {warm}")
+    resident = torch.cuda.memory_allocated() / 2 ** 30
     counters = _counters()
+    from uninext_tpu_torch.models import vit
+    from uninext_tpu_torch.ops import msda
+    recompute = {"rel_pos_flash_attn": vit.flash_rel_pos_attention,
+                 "ms_deform_attn_fwd": msda.ms_deform_attn}
     t = cfg.transformer
     n_remat = t.enc_layers if cfg.remat_encoder else 0
+    blocks = cfg.backbone.vit_depth if cfg.backbone.name == "vit_huge" else 0
+    n_remat_vit = blocks if cfg.backbone.vit_use_checkpoint else 0
+    # the template tower is encoded without checkpointing (`encode_template`
+    # runs its trunk outside training mode): A and A-bwd once a block; the
+    # key frame's tower as in phase 6
     expect = {**dict.fromkeys(counters, 0),
+              "rel_pos_flash_attn": 2 * blocks + n_remat_vit,
+              "rel_pos_flash_attn_bwd": 2 * blocks,
               "ms_deform_attn_fwd": t.enc_layers + t.dec_layers + n_remat,
               "ms_deform_attn_bwd": t.enc_layers + t.dec_layers}
+    expect_recompute = {"rel_pos_flash_attn": n_remat_vit, "ms_deform_attn_fwd": n_remat}
     calls, unrecord = _recording_msda()
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
@@ -2485,12 +2548,15 @@ def phase_sot_training(cfg, n_steps: int, label: str = "video_joint_r50"):
     step_ms, metrics, per_step, decay_err = [], [], [], 0.0
     for _ in range(n_steps):
         before = {k: c.launches for k, c in counters.items()}
+        before_r = {k: c.recompute_launches for k, c in recompute.items()}
         old = {n: params[n].detach().clone() for n in bert}
         t0 = time.perf_counter()
         m = train_step(state, batch, task="sot")
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        per_step.append({k: c.launches - before[k] for k, c in counters.items()})
+        per_step.append(({k: c.launches - before[k] for k, c in counters.items()},
+                         {k: c.recompute_launches - before_r[k]
+                          for k, c in recompute.items()}))
         metrics.append({k: float(v) for k, v in m.items()})
         if any(params[n].grad is not None for n in bert):
             raise AssertionError("sot training: the frozen BERT got a gradient")
@@ -2514,20 +2580,25 @@ def phase_sot_training(cfg, n_steps: int, label: str = "video_joint_r50"):
             raise AssertionError(f"sot step {i + 1}: non-finite {bad} or a reid loss")
     print(f"[sot training] step ms (host clock, synchronised): "
           + ", ".join(f"{x:.1f}" for x in step_ms)
-          + f"; peak device memory {peak:.2f} GiB (max_memory_allocated)")
-    print(f"[sot training] kernel launches per step: {per_step[0]}; expected {expect}")
-    for counts in per_step:
-        if counts != expect:
-            raise AssertionError(f"sot launches per step {counts} != {expect}")
+          + f"; peak device memory {peak:.2f} GiB (max_memory_allocated), {resident:.2f} GiB "
+          f"held between steps (parameters, gradients, AdamW state, the batch)")
+    print(f"[sot training] kernel launches per step: {_nonzero(per_step[0][0])}, of them "
+          f"recomputes under checkpointing {per_step[0][1]}; expected {_nonzero(expect)}, "
+          f"recomputes {expect_recompute}")
+    for counts, rcounts in per_step:
+        if counts != expect or rcounts != expect_recompute:
+            raise AssertionError(f"sot launches per step {counts} (recomputes {rcounts}) != "
+                                 f"{expect} ({expect_recompute})")
     still = [n for n in moving if torch.equal(params[n], before_moving[n])]
     if still:
         raise AssertionError(f"sot training: parameters that should move did not: {still}")
     moved = [n for n, p in frozen.items() if not torch.equal(params[n], p)]
     if moved:
         raise AssertionError(f"sot training: frozen parameters moved: {moved[:5]}")
-    print(f"[sot training] moved: {moving}; the {len(frozen)} frozen parameters bit-equal "
-          f"({len(template_frozen)} of them the template {cfg.backbone.name}'s "
-          f"{', '.join(frozen_prefixes)} parameters (and a ResNet's FrozenBN statistics)); "
+    print(f"[sot training] {label} moved: {moving}; the {len(frozen)} frozen parameters "
+          f"bit-equal ({len(template_frozen)} of them the template {cfg.backbone.name}'s "
+          f"{', '.join(frozen_prefixes) or 'none'} parameters (and a ResNet's FrozenBN "
+          f"statistics)); "
           f"frozen BERT: no gradient, each update = before x (1 - lr_lang x "
           f"schedule x wd) within {decay_err:.3g} (relative; tolerance 2.5e-7)")
     checks = _check_msda_calls(calls, label="sot training")
@@ -3670,8 +3741,9 @@ def _cli_layouts(root):
     """The generated layouts of the CLI phase under `root`: mini-COCO (8
     train and 4 val images of 280x360), a DAVIS 480p video (854x480, 2
     objects, the second from frame 1, every frame annotated), a BDD-sized
-    frame directory (720x1280), a LaSOT sequence (720x1280) and a demo
-    image (480x640)."""
+    frame directory (720x1280, 2 cars) with its scalabel labels json beside
+    it (`labels/vid0.json`, where `eval_video --dump-dets` reads the gt), a
+    LaSOT sequence (720x1280) and a demo image (480x640)."""
     import numpy as np
     from PIL import Image
     from uninext_tpu_torch.data.mini_coco import make_mini_coco
@@ -3681,7 +3753,7 @@ def _cli_layouts(root):
            "davis": os.path.join(root, "DAVIS"), "bdd": os.path.join(root, "bdd"),
            "lasot": os.path.join(root, "lasot"), "image": os.path.join(root, "demo.jpg")}
     seq = os.path.join(lay["lasot"], "car", "car-1")
-    gt = []
+    gt, bdd_labels = [], []
     for fi in range(CLI_FRAMES):
         obj1 = (100 + 10 * fi, 120, 300 + 10 * fi, 320, (200, 30, 30))
         obj2 = (500, 150 + 8 * fi, 700, 330 + 8 * fi, (30, 200, 60))
@@ -3695,12 +3767,19 @@ def _cli_layouts(root):
         img = Image.fromarray(ann, mode="P")
         img.putpalette(davis_palette().ravel().tolist())
         img.save(f"{lay['davis']}/Annotations/480p/toyvid/{fi:05d}.png")
+        cars = ((200 + 15 * fi, 300, 420 + 15 * fi, 520), (800, 250 + 5 * fi, 1000, 400 + 5 * fi))
         _jpeg(f"{lay['bdd']}/vid0/{fi:07d}.jpg", rng, 720, 1280,
-              ((200 + 15 * fi, 300, 420 + 15 * fi, 520, (30, 160, 220)),
-               (800, 250 + 5 * fi, 1000, 400 + 5 * fi, (220, 200, 40))))
+              (cars[0] + ((30, 160, 220),), cars[1] + ((220, 200, 40),)))
+        bdd_labels.append({"name": f"{fi:07d}.jpg", "videoName": "vid0", "frameIndex": fi,
+                           "labels": [{"id": str(i + 1), "category": "car", "box2d": dict(
+                               zip(("x1", "y1", "x2", "y2"), map(float, b)))}
+                                      for i, b in enumerate(cars)]})
         box = (300 + 20 * fi, 200, 620 + 20 * fi, 460)
         _jpeg(f"{seq}/img/{fi + 1:08d}.jpg", rng, 720, 1280, (box + ((220, 40, 40),),))
         gt.append(f"{box[0]},{box[1]},{box[2] - box[0]},{box[3] - box[1]}")
+    os.makedirs(os.path.join(root, "labels"))
+    with open(os.path.join(root, "labels", "vid0.json"), "w") as f:
+        json.dump(bdd_labels, f)
     with open(os.path.join(seq, "groundtruth.txt"), "w") as f:
         f.write("\n".join(gt) + "\n")
     for name in ("full_occlusion.txt", "out_of_view.txt"):
@@ -3758,6 +3837,49 @@ def _cli_round_trip(cfg, label, root, dev, template):
     return path
 
 
+def _path_runner(counters, launches, summary, tag):
+    """`tool(path, run, timers, expect)`: `run()` as path `path`: the counts
+    set to 0 just before it and read just after; `timers` [(owner, name,
+    factory?, log key)] time the steps, frames or images; `expect(logs)`
+    gives the launches it must have made. Each path's launches go into
+    `launches`, its wall time, median step and peak memory into `summary`;
+    returns what `run` returned."""
+    import torch
+
+    def tool(path, run, timers, expect):
+        logs = {key: [] for *_, key in timers}
+        undo = [(_timed_factory if factory else _timed_attr)(owner, name, logs[key])
+                for owner, name, factory, key in timers]
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            result = run()
+            torch.cuda.synchronize()
+        finally:
+            for u in undo:
+                u()
+        wall = time.perf_counter() - t0
+        got = {k: c.launches for k, c in counters.items()}
+        want = {**dict.fromkeys(counters, 0), **expect(logs)}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = logs.get("step", [])
+        med = sorted(ms)[len(ms) // 2] if ms else None
+        summary[path] = {"wall_s": wall, "median_ms": med, "timed": len(ms), "peak_gib": peak,
+                         **{f"{k}_calls": len(v) for k, v in logs.items() if k != "step"}}
+        print(f"[{tag}] {path}: wall {wall:.2f} s; {len(ms)} timed steps, frames or images, "
+              f"median {med} ms (" + ", ".join(f"{x:.1f}" for x in ms[:12])
+              + f"); peak device memory {peak:.2f} GiB; launches {_nonzero(got)}")
+        if got != want:
+            raise AssertionError(f"{path}: launches {got} != {want}")
+        launches[path] = got
+        return result
+
+    return tool
+
+
 def phase_cli():
     """The command line (`uninext_tpu_torch/tools/`) at full width on the
     card, each tool's `main` in this process under a patched sys.argv, on
@@ -3796,46 +3918,10 @@ def phase_cli():
     r50, video = image_joint_r50(), video_joint_r50()
     per_pass = r50.transformer.enc_layers + r50.transformer.dec_layers   # MSDA a forward
     remat = r50.transformer.enc_layers if r50.remat_encoder else 0
-    reid = lambda cfg: cfg.n_layer_deformable_reid if cfg.use_reid and \
-        cfg.use_deformable_reid else 0                 # MSDA of the reid head
+    reid = _reid_msda                                   # MSDA of the reid head
     blocks = video_joint_vit_huge().backbone.vit_depth  # kernel A a ViT-H backbone pass
     launches, summary = {}, {}
-
-    def tool(path, run, timers, expect):
-        """`run()` as path `path`: the counts set to 0 just before it and read
-        just after; `timers` [(owner, name, factory?, log key)] time the
-        steps, frames or images; `expect(logs)` gives the launches it must
-        have made. Returns what `run` returned."""
-        logs = {key: [] for *_, key in timers}
-        undo = [(_timed_factory if factory else _timed_attr)(owner, name, logs[key])
-                for owner, name, factory, key in timers]
-        for c in counters.values():
-            c.launches = 0
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            result = run()
-            torch.cuda.synchronize()
-        finally:
-            for u in undo:
-                u()
-        wall = time.perf_counter() - t0
-        got = {k: c.launches for k, c in counters.items()}
-        want = {**dict.fromkeys(counters, 0), **expect(logs)}
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        ms = logs.get("step", [])
-        med = sorted(ms)[len(ms) // 2] if ms else None
-        summary[path] = {"wall_s": wall, "median_ms": med, "timed": len(ms), "peak_gib": peak,
-                         **{f"{k}_calls": len(v) for k, v in logs.items() if k != "step"}}
-        print(f"[cli] {path}: wall {wall:.2f} s; {len(ms)} timed steps, frames or images, "
-              f"median {med} ms (" + ", ".join(f"{x:.1f}" for x in ms[:12])
-              + f"); peak device memory {peak:.2f} GiB; launches {_nonzero(got)}")
-        if got != want:
-            raise AssertionError(f"{path}: launches {got} != {want}")
-        launches[path] = got
-        return result
-
+    tool = _path_runner(counters, launches, summary, "cli")
     steps = lambda logs: len(logs["step"])
     sot_timers = [(sot_inference, "make_sot_frame_step", True, "step"),
                   (sot_inference, "make_template_encoder", True, "encode")]
@@ -4344,6 +4430,293 @@ def phase_protocol():
     return launches, checks
 
 
+RVOS_DIAG_STEPS = 20        # grounding steps of each R-VOS diagnostic run in phase 22
+VITH_SOT_TRAIN_STEPS = 3    # timed ViT-H SOT steps in phase 22, after 1 warm-up
+
+
+def _replayed(fn):
+    """The outputs of `fn()` from one replay of a CUDA graph that captured
+    it (after one eager warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return out
+
+
+def _kernel_a_bwd_at(g, label, B, h, w):
+    """Kernels A and A-bwd (bf16, tensor cores) at (B, h, w) with ViT-H's 16
+    heads of 80, their outputs from one replay of a CUDA graph that
+    captured them, against the plain version (A: phase 2's tolerance) and
+    autograd through it (A-bwd: phase 3's, relative to each gradient's
+    largest entry). A-bwd's wrapper and its kernels alone timed over graph
+    replays, the wrapper also eagerly, beside its bound, the plain backward
+    and the backward of SDPA with a float bias mask (dq, dk, dv, dbias):
+    eagerly, and over graph replays as forward and backward less the
+    forward. Returns A's error and A-bwd's record under `label`."""
+    import torch
+    import torch.nn.functional as F
+    from uninext_tpu_torch.models import vit
+    from uninext_tpu_torch.tools import event_ms
+    nh, hd, dt = 16, 80, torch.bfloat16
+    S = h * w
+    base, rh0, rw0 = _attention_inputs(g.device, g, B, h, w, nh, hd)
+    q, k, v = base.to(dt).unbind(2)
+    q5 = q.reshape(B, h, w, nh, hd)
+    fargs = (q5, k, v, rh0.to(dt), rw0.to(dt), hd ** -0.5)
+    a_err = _check(f"kernel A at the {label} shape (a CUDA graph replay)",
+                   _replayed(lambda: vit.flash_rel_pos_attention(*fargs)),
+                   vit.rel_pos_attention_plain(*fargs), 3.2e-2)
+    cot = torch.randn(B, h, w, nh * hd, device=g.device, generator=g).to(dt)
+    out, lse = vit.rel_pos_flash_attn_fwd(*fargs, with_lse=True)
+    dq, dk, dv, drh, drw = _replayed(lambda: vit.rel_pos_flash_attn_bwd(*fargs, out, lse, cot))
+    qkv = base.to(dt).requires_grad_()
+    rh, rw = rh0.to(dt).requires_grad_(), rw0.to(dt).requires_grad_()
+    pq, pk, pv = qkv.unbind(2)
+    pout = vit.rel_pos_attention_plain(pq.reshape(B, h, w, nh, hd), pk, pv, rh, rw, hd ** -0.5)
+    want = torch.autograd.grad(pout, (qkv, rh, rw), cot, retain_graph=True)
+    got = (torch.stack([x.reshape(B, S, nh, hd) for x in (dq, dk, dv)], 2), drh, drw)
+    errs, rels = zip(*(_check_rel(f"kernel A-bwd at the {label} shape {n} (a CUDA graph "
+                                  f"replay)", a, b, 1.6e-2)
+                       for n, a, b in zip(("dqkv", "dRh", "dRw"), got, want)))
+    ms = event_ms(lambda: vit.rel_pos_flash_attn_bwd(*fargs, out, lse, cot), 10, warmup=1)
+    kms = event_ms(_bwd_kernels_alone(*fargs, out, lse, cot), 10, warmup=1)
+    eager = _timed(lambda: vit.rel_pos_flash_attn_bwd(*fargs, out, lse, cot), 10)
+    pms = _timed(lambda: torch.autograd.grad(pout, (qkv, rh, rw), cot, retain_graph=True), 3,
+                 warmup=1)
+    args = _sdpa_args(q5, k, v, rh0.to(dt), rw0.to(dt))
+    lcot = cot.reshape(B, S, nh, hd).transpose(1, 2)
+
+    def sdpa_grads():
+        # fresh leaves on each call: inside a graph capture, an autograd
+        # node made before it (on another stream) would break the capture
+        leaves = [x.detach().requires_grad_() for x in args]
+        return torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3]), leaves, lcot)
+
+    leaves = [x.detach().requires_grad_() for x in args]
+    lout = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3])
+    lib = _timed(lambda: torch.autograd.grad(lout, leaves, lcot, retain_graph=True), 10)
+    del lout, leaves
+    lib_g = (event_ms(sdpa_grads, 10)
+             - event_ms(lambda: F.scaled_dot_product_attention(*args[:3], attn_mask=args[3]),
+                        10))
+    b_ms, b_by = _a_bwd_bound(B, h, w, nh, hd, dt)
+    print(f"[kernel A-bwd] {label} B={B} {h}x{w} nh={nh} hd={hd} bf16, from a CUDA graph "
+          f"replay: max_abs_err dqkv/dRh/dRw = " + "/".join(f"{e:.3g}" for e in errs)
+          + ", / max |grad| = " + "/".join(f"{e:.3g}" for e in rels)
+          + f" (tol 1.6e-2); kernel A max_abs_err {a_err:.3g} (tol 3.2e-2); A-bwd over "
+          f"graph replays: wrapper {ms:.4f} ms, kernels alone {kms:.4f} ms "
+          f"({100 * b_ms / kms:.1f}% of the bound {b_ms:.5f} ms, {b_by}); wrapper eagerly "
+          f"{eager:.4f} ms; plain backward {pms:.3f} ms; SDPA's backward with a float bias "
+          f"mask (dq, dk, dv, dbias) {lib:.4f} ms eagerly, {lib_g:.4f} ms over graph replays "
+          f"(forward and backward less the forward)")
+    return a_err, {f"{label}_max_abs_err": max(errs), f"{label}_max_rel_err": max(rels),
+                   f"{label}_graph_ms": ms, f"{label}_kernel_graph_ms": kms,
+                   f"{label}_ms": eager, f"{label}_plain_ms": pms, f"{label}_bound_ms": b_ms,
+                   f"{label}_bound_by": b_by, f"{label}_library_ms": lib,
+                   f"{label}_library_graph_ms": lib_g, f"{label}_shape": f"B={B} {h}x{w} bf16"}
+
+
+def phase_video_tools():
+    """The rest of the video family (`uninext_tpu_torch/tools/rvos_diag.py`,
+    `tools/grid_search_track.py` over `eval_video --dump-dets` caches, the
+    ViT-H SOT step), in a temporary directory: `rvos_diag --steps
+    RVOS_DIAG_STEPS --temporal-weights 0 0.3` (its R-VOS fixture, the small
+    config trained on grounding pairs, then both arms evaluated; every arm's
+    numbers finite and in [0, 1], 24 frames each); `eval_video --task mot
+    --dump-dets` with `video_joint_r50` at full width (random weights from
+    seed 0, the last decoder layer's class and IoU biases lifted by 5 and 4
+    so that frames have tracks) on phase 20's BDD layout with its labels
+    json, then `grid_search_track` over the cache, and `associate` at the
+    preset's thresholds on the cache giving back the `box_track.json` that
+    `eval_video` wrote; then phase 14's step on `video_joint_vit_huge`
+    (VITH_SOT_TRAIN_STEPS timed steps), and kernels A and A-bwd at the
+    template tower's shapes (global 2x16x16 and 8 windows of 14x14) against
+    their plain versions, timed beside SDPA. Launches asserted per step and
+    frame, as paths "rvos_diag", "mot_dump" and "sot_vith_training"; MSDA
+    and MSDA-bwd held to their plain versions at every shape the tools
+    gave them, NMS's keep masks at the dump's inputs. Returns ({path:
+    launches}, {kernel: checks})."""
+    import tempfile
+    import numpy as np
+    import torch
+    from uninext_tpu_torch.config import eval_config, video_joint_r50, video_joint_vit_huge
+    from uninext_tpu_torch.engine import mot_inference, trainer, video_inference
+    from uninext_tpu_torch.evaluation.bdd_submit import box_track_to_bdd
+    from uninext_tpu_torch.models.detr import build_model
+    from uninext_tpu_torch.ops import nms
+    from uninext_tpu_torch.tools import evidence, grid_search_track
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = _counters()
+    launches, summary = {}, {}
+    tool = _path_runner(counters, launches, summary, "video tools")
+    steps = lambda logs: len(logs["step"])
+    small = evidence.build_tiny_cfg(RVOS_DIAG_STEPS, frame_range=7, use_reid=True)
+    s_fwd, _, s_bwd = _video_pair_msda(small)
+    s_frame = small.transformer.enc_layers + small.transformer.dec_layers + _reid_msda(small)
+    video = video_joint_r50()
+    per_frame = video.transformer.enc_layers + video.transformer.dec_layers + _reid_msda(video)
+    calls, unrecord = _recording_msda()
+    nms_calls, unrecord_nms = _recording_nms()
+    env = os.environ.get("UNINEXT_ALLOW_HASH_VOCAB")
+    os.environ["UNINEXT_ALLOW_HASH_VOCAB"] = "1"     # random BERT tables, the hash vocab
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_video_tools_") as root:
+            diag_json = os.path.join(root, "rvos_diag.json")
+            tool("rvos_diag", lambda: _run_cli("rvos_diag", [
+                "--steps", str(RVOS_DIAG_STEPS), "--temporal-weights", "0", "0.3", "--out",
+                diag_json]),
+                [(trainer, "train_step", False, "step"),
+                 (mot_inference, "make_rvos_frame_step", True, "frame")],
+                lambda logs: {"ms_deform_attn_fwd": s_fwd * steps(logs)
+                              + s_frame * len(logs["frame"]),
+                              "ms_deform_attn_bwd": s_bwd * steps(logs)})
+            with open(diag_json) as f:
+                arms = json.load(f)["arms"]
+            # a frame step per val frame in eval_rvos, decompose's steps and its
+            # driver pass, for each of the 2 arms
+            if summary["rvos_diag"]["timed"] != RVOS_DIAG_STEPS or \
+                    summary["rvos_diag"]["frame_calls"] != 2 * 3 * 24:
+                raise AssertionError(f"rvos_diag: {summary['rvos_diag']}")
+            for arm in arms:
+                nums = {k: v for k, v in arm.items() if k not in (
+                    "spec", "train_videos", "temporal_weight", "seed", "train_seconds",
+                    "n_frames", "per_frame")}
+                # no selected frame leaves mask_j_when_selected None, as in JAX
+                bad = {k: v for k, v in nums.items() if not (
+                    v is None and k == "mask_j_when_selected" and
+                    arm["selection_acc_iou50"] == 0 or
+                    v is not None and math.isfinite(v) and 0 <= v <= 1)}
+                if bad or arm["n_frames"] != 24:
+                    raise AssertionError(f"rvos_diag arm {arm['spec']}: {bad}, "
+                                         f"{arm['n_frames']} frames")
+            summary["rvos_diag"]["arms"] = arms
+
+            lay = _cli_layouts(root)
+            model = build_model(video, seed=0)
+            sd = model.state_dict()
+            last = video.transformer.dec_layers - 1
+            sd[f"detr.detr.class_embed.{last}.bias0"] += 5
+            sd[f"detr.detr.iou_head.{last}.bias"] += 4
+            pth = os.path.join(root, "video_joint_r50.pth")
+            torch.save({"model": sd}, pth)
+            del model, sd
+            dets, mot_out = os.path.join(root, "dets"), os.path.join(root, "mot")
+            tool("mot_dump", lambda: _run_cli("eval_video", [
+                "--task", "mot", "--data-root", lay["bdd"], "--config", "video_joint_r50",
+                "--weights", pth, "--output-dir", mot_out, "--dump-dets", dets]),
+                [(video_inference._FrameDriver, "frame_outputs", False, "step")],
+                lambda logs: {"ms_deform_attn_fwd": per_frame * steps(logs),
+                              "nms": steps(logs)})
+            cache = os.path.join(dets, "vid0.npz")
+            raw, image_size, ori, gt, sel = grid_search_track.load_detections(cache)
+            track = eval_config(video, "mot")[0].track
+            fns = sorted(os.listdir(os.path.join(lay["bdd"], "vid0")))
+            again = box_track_to_bdd(mot_inference.associate(
+                raw, image_size, ori, init_score_thr=track.init_score_thr,
+                obj_score_thr=track.obj_score_thr), fns, "vid0")
+            with open(os.path.join(mot_out, "box_track.json")) as f:
+                written = json.load(f)
+            n_dets = [len(f["boxes"]) for f in raw]
+            top = max((float(f["scores"].max()) for f in raw if len(f["scores"])), default=0.0)
+            tracked = sum(len(f["labels"]) for f in written)
+            if len(raw) != CLI_FRAMES or gt is None or [len(g["ids"]) for g in gt] != \
+                    [2] * CLI_FRAMES or not min(n_dets) or not tracked or \
+                    sel != min(track.inference_select_thr, track.obj_score_thr):
+                raise AssertionError(f"mot dump: {len(raw)} frames, gt {gt}, detections "
+                                     f"{n_dets} (scores up to {top:.3f}), {tracked} "
+                                     f"tracked, select_thr {sel}")
+            if json.loads(json.dumps(again)) != written:
+                raise AssertionError("associate on the cache at the preset's thresholds "
+                                     "differs from eval_video's box_track.json")
+            scores = np.concatenate([f["scores"] for f in raw])
+            print(f"[video tools] mot_dump: {cache} holds {CLI_FRAMES} frames, detections "
+                  f"{n_dets} above select_thr {sel} (scores {scores.min():.3f}-"
+                  f"{scores.max():.3f}), gt ids {[g['ids'].tolist() for g in gt]}; associate "
+                  f"at init {track.init_score_thr}, obj {track.obj_score_thr} on it gives "
+                  f"eval_video's box_track.json back ({tracked} tracked boxes)")
+            for c in counters.values():
+                c.launches = 0
+            t0 = time.perf_counter()
+            text = _run_cli("grid_search_track", [cache, "--init", "0.3:0.8:0.1",
+                                                  "--obj", f"{sel:g}:0.6:0.1"])
+            grid_s = time.perf_counter() - t0
+            rows = [line for line in text.splitlines()
+                    if line.split() and line.split()[0].replace(".", "").isdigit()]
+            results, best = grid_search_track.run_grid(
+                [(raw, image_size, ori, gt)], [0.3, 0.4, 0.5, 0.6, 0.7],
+                [0.1, 0.2, 0.3, 0.4, 0.5], cache_select_thr=sel)
+            if _nonzero({k: c.launches for k, c in counters.items()}) or len(rows) != 19 or \
+                    len(results) != 19 or "best (MOTA)" not in text or not all(
+                        math.isfinite(e["MOTA"]) and 0 <= e["IDF1"] <= 1 for e in results):
+                raise AssertionError(f"grid_search_track: {len(rows)} rows, {results[:3]}")
+            try:
+                grid_search_track.run_grid([(raw, image_size, ori, gt)], [0.5], [sel / 2],
+                                           cache_select_thr=sel)
+                raise AssertionError("grid_search_track: an obj threshold below the "
+                                     "cache's select_thr was not refused")
+            except ValueError:
+                pass
+            summary["grid_search"] = {"wall_s": grid_s, "points": len(results), "best": best,
+                                      "tracked_at_preset": tracked}
+            print(f"[video tools] grid_search_track over the cache: {len(results)} points in "
+                  f"{grid_s:.2f} s on the host, no kernel launched; best {best}; an obj "
+                  f"threshold of {sel / 2} refused")
+    finally:
+        unrecord()
+        unrecord_nms()
+        if env is None:
+            os.environ.pop("UNINEXT_ALLOW_HASH_VOCAB", None)
+        else:
+            os.environ["UNINEXT_ALLOW_HASH_VOCAB"] = env
+    checks = {name: {f"video_tools_{k[5:] if k.startswith('loop_') else k}": v
+                     for k, v in r.items()}
+              for name, r in _check_msda_calls(calls, label="video tools").items()}
+    kept = []
+    for boxes, scores, classes, thr, valid in nms_calls:
+        for v in (valid, (scores > scores.median()).contiguous()):
+            got = nms.batched_nms(boxes, scores, classes, thr, valid=v)
+            if not torch.equal(got, nms.batched_nms_plain(boxes, scores, classes, thr,
+                                                          valid=v)):
+                raise AssertionError("mot dump: NMS keep mask differs from the plain version")
+            kept.append(int(got.sum()))
+    checks["nms"] = {"video_tools_calls": len(nms_calls), "video_tools_kept": kept}
+    print(f"[video tools] NMS keep masks of the {len(nms_calls)} MOT frames identical to the "
+          f"plain version's (kept {kept}); MSDA at {len(calls)} recorded shapes held to plain")
+
+    t0 = time.perf_counter()
+    launches["sot_vith_training"], sot_checks = phase_sot_training(
+        video_joint_vit_huge(), VITH_SOT_TRAIN_STEPS, "video_joint_vit_huge")
+    summary["sot_vith_training"] = {"wall_s": time.perf_counter() - t0}
+    for name, r in sot_checks.items():
+        checks[name].update({f"video_tools_vith_{k[5:] if k.startswith('loop_') else k}": v
+                             for k, v in r.items()})
+    gk = torch.Generator(device=dev).manual_seed(22)
+    checks["rel_pos_flash_attn"], checks["rel_pos_flash_attn_bwd"] = {}, {}
+    for key, (B, h, w) in (("sot_vith_training_template", (2, 16, 16)),
+                           ("sot_vith_training_template_window", (8, 14, 14))):
+        err, ms, pms, b_ms, b_by, lib, gms, lib_g = _kernel_a_at(gk, key, B, h, w)
+        replay_err, bwd = _kernel_a_bwd_at(gk, key, B, h, w)
+        checks["rel_pos_flash_attn"].update({
+            f"{key}_max_abs_err": max(err, replay_err), f"{key}_ms": ms,
+            f"{key}_plain_ms": pms, f"{key}_bound_ms": b_ms, f"{key}_bound_by": b_by,
+            f"{key}_library_ms": lib, f"{key}_graph_ms": gms,
+            f"{key}_library_graph_ms": lib_g, f"{key}_shape": f"B={B} {h}x{w} bf16"})
+        checks["rel_pos_flash_attn_bwd"].update(bwd)
+        torch.cuda.empty_cache()
+    checks["ms_deform_attn_fwd"]["video_tools"] = {
+        p: {k: (round(v, 4) if isinstance(v, float) else v) for k, v in s.items()}
+        for p, s in summary.items()}
+    print(f"[video tools] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, checks
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -4480,10 +4853,15 @@ def main():
     protocol, protocol_checks = phase_protocol()
     for name, r in protocol_checks.items():
         rec[name].update(r)
+    video_tools, video_tools_checks = phase_video_tools()
+    for name, r in video_tools_checks.items():
+        rec[name].update(r)
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
-    a["max_abs_err"] = max([a["max_abs_err"]] + [v for k, v in a.items()
-                                                  if k.endswith("_max_abs_err")])
+    for r in (a, rec["rel_pos_flash_attn_bwd"]):
+        for err in ("max_abs_err", "max_rel_err"):
+            if err in r:
+                r[err] = max([r[err]] + [v for k, v in r.items() if k.endswith("_" + err)])
     for prefix, checks in (("sot_training", sot_train_checks), ("sot_loop", sot_loop_checks)):
         for name, r in checks.items():
             rec[name].update({f"{prefix}_{k}": v for k, v in r.items()})
@@ -4506,6 +4884,7 @@ def main():
                    **{path: n[name] for path, n in convnext.items()},
                    **{path: n[name] for path, n in cli.items()},
                    **{path: n[name] for path, n in protocol.items()},
+                   **{path: n[name] for path, n in video_tools.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")

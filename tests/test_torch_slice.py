@@ -111,7 +111,8 @@ def test_port_runs_without_jax():
     (the registry, the SOT loaders, the submission writers) with
     `train_net --eval-only` on a mini-COCO from a reference `.pth`, and
     the eval protocol's cut (a model cut to 16 queries and 2 + 2 points
-    serving a batch of 2) with its tools imported, run
+    serving a batch of 2) with its tools imported, and the video tools
+    (`grid_search_track`, `rvos_diag`) imported, run
     with jax, flax, optax, orbax and the JAX package (`uninext_tpu`,
     `uninext_tpu.*`) blocked from import and leave them out of
     sys.modules: the H100 machine runs the port without them."""
@@ -336,6 +337,8 @@ def test_port_runs_without_jax():
         import uninext_tpu_torch.tools.demo
         import uninext_tpu_torch.tools.eval_seginw
         import uninext_tpu_torch.tools.eval_video
+        import uninext_tpu_torch.tools.grid_search_track
+        import uninext_tpu_torch.tools.rvos_diag
         import uninext_tpu_torch.tools.vot_integration
         from uninext_tpu_torch.data.mini_coco import make_mini_coco
         from uninext_tpu_torch.tools import train_net
