@@ -13,7 +13,9 @@ and the SOT step) with a RoBERTa request, the command-line tools (training,
 evaluation, the demo, SegInW, the VOT adapter, reference checkpoints), the
 eval protocol and batched serving (the frontier and throughput tools), the
 rest of the video family (the R-VOS diagnostic, the tracker grid search
-over dumped detections, ViT-H SOT training) and the labs (`tools/`).
+over dumped detections, ViT-H SOT training), the reference's transformer
+options that no preset sets (serving, training and a SOT frame under three
+groups of them) and the labs (`tools/`).
 
     python3 chip_smoke.py [--profile]
 
@@ -253,6 +255,22 @@ nonzero):
      "rvos_diag", "mot_dump", "sot_vith_training"; MSDA and MSDA-bwd held to
      their plain versions at every shape the tools gave them, NMS's keep
      masks at the dump's inputs.
+  23. the transformer options (`phase_options`, `OPTION_GROUPS`): G1
+     (USE_ADDITIONAL_BERT: a BERT-base layer on the 256-token prompt after
+     each of the 6 encoder layers; the encoder's VLAlign head; no IoU
+     branch), G2 (STILL_TGT_FOR_BOTH off: grounding's target the pooled
+     prompt), G3 (DECOUPLE_TGT and LOOK_FORWARD_TWICE off) on
+     `image_joint_r50` at full width with the default model's weights (G1's
+     new modules from seed 0): one request's outputs finite and other than
+     the default config's; phase 7's requests (G1, G3 detection: MSDA 12,
+     NMS 1; G2 REC/RES: MSDA 12, NMS 0) and phase 8's step (1 warm-up and 3
+     timed; G2 a grounding step; MSDA 18 of which 6 recomputes, MSDA-bwd
+     12) with the median request and step, peak memory and launches; one
+     SOT frame step of `video_joint_r50` under G1 and G2 (MSDA 12; the score
+     from the class alone without the IoU head); `tiny_test_config` with
+     each group card vs CPU in fp32 (phase 4's check); paths
+     "options_g*_detection", "options_g2_rec", "options_g*_training",
+     "options_g*_sot", "options_reference".
      `--profile` adds one profiled detection request and one profiled step
      of each backbone, and one profiled R50 REC/RES request, and prints
      their device time by kernel and the device's idle share.
@@ -1113,7 +1131,7 @@ def _reference_pair(cfg, label, tasks, hw):
     def serve(model, dev):
         args = [t.to(dev) for t in (images, mask, sizes, ids, tmask)]
         out = model(*args)
-        res = {k: out[k] for k in ("pred_logits", "pred_boxes", "pred_boxious")}
+        res = {k: out[k] for k in ("pred_logits", "pred_boxes", "pred_boxious") if k in out}
         if "masks" in tasks:
             inst = postprocess_instseg(model, out, cmap.to(dev), args[2])
             rec = postprocess_rec(model, model(*args, task="grounding"), args[2])
@@ -1264,10 +1282,12 @@ def _serving_requests(dev):
     return requests
 
 
-def phase_serving(cfg, label: str, tasks, profile: bool):
+def phase_serving(cfg, label: str, tasks, profile: bool, model=None, stats=None):
     """`cfg` at full width: N_REQUESTS requests of each task, one at a time
     (with `profile`, one more detection and REC/RES request each under the
-    profiler).
+    profiler), on `model` when given, else on one built from seed 0; with
+    `stats` (a dict), each task's median latency (the first request apart),
+    its range and its peak memory go into it.
     "detection": the 80-class COCO prompt encoded once, forward and
     `postprocess_detection`; "instseg": the same and the masks of the top
     100 (`postprocess_instseg`); "rec": a 20-token expression through BERT
@@ -1279,12 +1299,15 @@ def phase_serving(cfg, label: str, tasks, profile: bool):
                                                       postprocess_instseg, postprocess_rec)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    model = build_model(cfg, seed=0).eval()
+    given = model is not None
+    if not given:
+        model = build_model(cfg, seed=0).eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     print(f"[serving] {label}: {n_params / 1e6:.2f}M parameters, compute dtype "
-          f"{cfg.compute_dtype}, random weights from seed 0, built in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{cfg.compute_dtype}, "
+          + ("the caller's weights" if given else
+             f"random weights from seed 0, built in {time.perf_counter() - t0:.1f} s"))
     ids, tmask, cmap = _prompt(cfg)
     counters = _counters()
     t = cfg.transformer
@@ -1326,6 +1349,9 @@ def phase_serving(cfg, label: str, tasks, profile: bool):
                 _check_outputs(task, out, post, cfg)
             launches[task] = {k: c.launches for k, c in counters.items()}
             peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            if stats is not None:
+                stats[task] = {"median_ms": _median_after_first(latencies),
+                               "peak_gib": peak}
             print(f"[serving] {label} {task}: per-request latency ms (host clock, "
                   "synchronised): " + ", ".join(f"{x:.1f}" for x in latencies)
                   + f"; peak device memory {peak:.2f} GiB")
@@ -1340,18 +1366,25 @@ def phase_serving(cfg, label: str, tasks, profile: bool):
                 if task in tasks:
                     _profile(lambda: serve(task, img, pad, sizes),
                              f"one {label} {task} request")
-    del model, lang, requests, out, post
+    del lang, requests, out, post
+    if not given:
+        del model
     torch.cuda.empty_cache()
     return launches
 
 
 def _check_outputs(task, out, post, cfg):
-    """Finite outputs of the expected shapes: detection's 100 boxes in
-    [0, 1] with scores in [0, 1] and COCO classes; instseg's mask logits
-    (1, 100, H/4, W/4); REC/RES's box and mask logits (1, 1, H/4, W/4)."""
+    """Finite outputs of the expected shapes (IoU logits exactly when the
+    config has the IoU branch): detection's 100 boxes in [0, 1] with scores
+    in [0, 1] and COCO classes; instseg's mask logits (1, 100, H/4, W/4);
+    REC/RES's box and mask logits (1, 1, H/4, W/4)."""
     import torch
     Q = cfg.transformer.num_queries
-    for k in ("pred_logits", "pred_boxes", "pred_boxious"):
+    iou = cfg.transformer.use_iou_branch
+    if ("pred_boxious" in out) != iou:
+        raise AssertionError(f"{task}: pred_boxious {'missing' if iou else 'present'} with "
+                             f"use_iou_branch {iou}")
+    for k in ("pred_logits", "pred_boxes") + (("pred_boxious",) if iou else ()):
         if not torch.isfinite(out[k]).all():
             raise AssertionError(f"{task}: {k} has non-finite values")
     T = 1 if task == "rec" else cfg.language.max_len
@@ -1412,12 +1445,15 @@ def _train_batch(cfg, dev):
                         "positive_map": torch.from_numpy(pmap).to(dev)}}
 
 
-def phase_training(cfg, label: str, n_steps: int, profile: bool):
+def phase_training(cfg, label: str, n_steps: int, profile: bool, task: str = "detection",
+                   stats=None):
     """The training step of `cfg` at full width: 1 warm-up and `n_steps`
-    timed steps. The optimizer's frozen group (R50's stem, res2 and every
+    timed steps of `task` (grounding: a 20-token expression for both
+    images). The optimizer's frozen group (R50's stem, res2 and every
     FrozenBN mean and var; ConvNeXt's stem) must come out bit-equal, and
     with R50 a res3 convolution, with ConvNeXt a stage-1 MLP, must have
-    moved. Returns the launch counts of the timed steps."""
+    moved. With `stats` (a dict), the median step time and the peak memory
+    go into it. Returns the launch counts of the timed steps."""
     import torch
     from uninext_tpu_torch.engine.train import build_train_state, train_step
     dev = torch.device("cuda")
@@ -1425,6 +1461,11 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
     t0 = time.perf_counter()
     state = build_train_state(cfg, seed=0)
     batch = _train_batch(cfg, dev)
+    if task == "grounding":
+        g = torch.Generator(device=dev).manual_seed(4)
+        expr = torch.randint(0, 30000, (1, 20), device=dev, generator=g)
+        batch["text_ids"] = expr.expand(TRAIN_BATCH, -1)
+        batch["text_mask"] = torch.ones_like(batch["text_ids"], dtype=torch.int32)
     params = dict(state.model.named_parameters())
     frozen = {n: params[n].detach().clone() for n in state.optimizer.names.get("frozen", [])}
     res3 = ("detr.detr.backbone.0.backbone." + BACKBONE_PARAMS[cfg.backbone.name][1]
@@ -1437,13 +1478,13 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
                 f"{cfg.backbone.name}, {len(frozen)} frozen parameters"
                 + (f", drop-path {cfg.backbone.drop_path_rate}"
                    if cfg.backbone.name == "convnext_large" else ""))
-    print(f"[training] {label}, bs={TRAIN_BATCH} at {IMAGE_HW[0]}x"
+    print(f"[training] {label}, {task}, bs={TRAIN_BATCH} at {IMAGE_HW[0]}x"
           f"{IMAGE_HW[1]} (image 1 valid on 800x1088), {n_valid} gt boxes, fp32 "
           f"parameters and AdamW state, {cfg.compute_dtype} compute, {backbone}, "
           f"encoder checkpointing {cfg.remat_encoder}; set up in "
           f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    warm = float(train_step(state, batch)["grad_norm"])
+    warm = float(train_step(state, batch, task)["grad_norm"])
     torch.cuda.synchronize()
     print(f"[training] {label} warm-up step {(time.perf_counter() - t0) * 1e3:.1f} ms, grad "
           f"norm before the clip {warm:.6g}")
@@ -1479,7 +1520,7 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
         before = {k: c.launches for k, c in counters.items()}
         before_r = {k: c.recompute_launches for k, c in recompute.items()}
         t0 = time.perf_counter()
-        m = train_step(state, batch)
+        m = train_step(state, batch, task)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         per_step.append(({k: c.launches - before[k] for k, c in counters.items()},
@@ -1488,6 +1529,9 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = {k: c.launches for k, c in counters.items()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if stats is not None:
+        ms = sorted(step_ms)
+        stats["training"] = {"median_ms": (ms[len(ms) // 2], ms[0], ms[-1]), "peak_gib": peak}
     for i, m in enumerate(metrics):
         print(f"[training] {label} step {i + 1}: total_loss {m['total_loss']:.6g}, grad norm "
               f"before the clip {m['grad_norm']:.6g}, {step_ms[i]:.1f} ms; losses "
@@ -1521,7 +1565,7 @@ def phase_training(cfg, label: str, n_steps: int, profile: bool):
     print(f"[training] {label}: the {len(frozen)} frozen parameters are bit-equal to "
           f"their values before the warm-up step" + (f"; {res3} moved" if moving else ""))
     if profile:
-        _profile(lambda: train_step(state, batch), f"one {label} train step")
+        _profile(lambda: train_step(state, batch, task), f"one {label} train step")
     del state, batch, params, frozen, moving
     torch.cuda.empty_cache()
     return launches
@@ -4717,6 +4761,233 @@ def phase_video_tools():
     return launches, checks
 
 
+# the reference's transformer switches that no preset sets, in groups whose
+# effects are separable (`tests/test_torch_options.py` holds each to JAX)
+OPTION_GROUPS = {
+    "g1": {"use_additional_bert": True, "still_cls_for_encoder": False,
+           "use_iou_branch": False},
+    "g2": {"still_tgt_for_both": False},
+    "g3": {"decouple_tgt": False, "look_forward_twice": False},
+}
+OPTIONS_TRAIN_STEPS = 3     # timed steps of each group, after 1 warm-up
+
+
+def _with_options(cfg, opts):
+    import dataclasses
+    return dataclasses.replace(cfg, transformer=dataclasses.replace(cfg.transformer, **opts))
+
+
+def _options_model(cfg, base_sd, template=False):
+    """`cfg`'s model with the default model's weights (`base_sd`, a state
+    dict on the host) wherever the names match; the option's own modules
+    (the additional BERT layers, the encoder's VLAlign) keep their init from
+    seed 0. Every name left at init must be one of those modules, and every
+    name of `base_sd` the model has not one of the IoU heads or the
+    encoder's linear classifier, as `tests/test_torch_options.py` holds.
+    Returns (model, the names left at init, `base_sd`'s names the model
+    has not)."""
+    from uninext_tpu_torch.models.detr import build_model
+    t = cfg.transformer
+    model = build_model(cfg, seed=0, template=template).eval()
+    missing, unexpected = model.load_state_dict(base_sd, strict=False)
+    new = ((".encoder.lang_layers.",) if t.use_additional_bert else ()) + (
+        () if t.still_cls_for_encoder else (f".class_embed.{t.dec_layers}.",))
+    gone = (() if t.use_iou_branch else (".iou_head.",)) + (
+        () if t.still_cls_for_encoder else (f".class_embed.{t.dec_layers}.body.",))
+    bad = ([k for k in missing if not any(m in k for m in new)]
+           + [k for k in unexpected if not any(m in k for m in gone)])
+    if bad:
+        raise AssertionError(f"the default weights do not load by name: {bad[:5]}")
+    return model, missing, unexpected
+
+
+def _host_state(model):
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def phase_options():
+    """The transformer options of the reference that the presets leave at
+    their defaults, in three groups (`OPTION_GROUPS`): G1 the additional BERT
+    layers (MODEL.USE_ADDITIONAL_BERT), the encoder's VLAlign head and no IoU
+    branch; G2 grounding's target the pooled prompt (STILL_TGT_FOR_BOTH
+    off); G3 the coupled target and detached references (DECOUPLE_TGT and
+    LOOK_FORWARD_TWICE off). For each, `image_joint_r50` with the group's
+    options at full width on the default model's weights (seed 0; G1's new
+    modules from their seed-0 init): one request's outputs finite and other
+    than the default's on the same inputs, then phase 7's requests
+    (detection for G1 and G3, REC/RES for G2; MSDA 12 and NMS 1 or 0 a
+    request) and phase 8's step (G2 a grounding step with a 20-token
+    expression; MSDA 18 of which 6 recomputes, MSDA-bwd 12), as paths
+    "options_g*_detection", "options_g*_rec", "options_g*_training"; one SOT
+    frame step of `video_joint_r50` with the template branch under G1 and
+    G2 (MSDA 12; the score sigmoid(cls) without the IoU head, G2's box or
+    score other than the default's), paths "options_g*_sot"; and phase 4's
+    card-vs-CPU check of `tiny_test_config` with each group's options (G2
+    with its REC/RES outputs), path "options_reference". Returns {path:
+    launches}."""
+    import numpy as np
+    import torch
+    from uninext_tpu_torch.config import image_joint_r50, tiny_test_config, video_joint_r50
+    from uninext_tpu_torch.engine.sot_inference import make_sot_frame_step, make_template_encoder
+    from uninext_tpu_torch.models.detr import build_model
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    counters = _counters()
+    launches, summary = {}, {}
+    r50 = image_joint_r50()
+    base = build_model(r50, seed=0).eval()
+    n_base = sum(p.numel() for p in base.parameters())
+    g = torch.Generator(device=dev).manual_seed(9)
+    Hh, Ww = IMAGE_HW
+    img = torch.randn(1, Hh, Ww, 3, device=dev, generator=g)
+    pad = torch.zeros(1, Hh, Ww, dtype=torch.bool, device=dev)
+    sizes = torch.tensor([[Hh, Ww]], device=dev)
+    ids, tmask, _ = _prompt(r50)
+    ids, tmask = torch.from_numpy(ids).long()[None].to(dev), torch.from_numpy(tmask)[None].to(dev)
+    expr = torch.randint(0, 30000, (1, 20), device=dev, generator=g)
+
+    def one_request(model):
+        with torch.inference_mode():
+            return {"detection": model(img, pad, sizes, ids, tmask),
+                    "grounding": model(img, pad, sizes, expr, torch.ones_like(expr),
+                                       task="grounding")}
+
+    # the default's outputs and weights wait on the host, so that each
+    # group's peak memory holds its own model only
+    ref = {task: {k: out[k].float().cpu() for k in ("pred_logits", "hs")}
+           for task, out in one_request(base).items()}
+    base_sd = _host_state(base)
+    del base
+    torch.cuda.empty_cache()
+    # what each group must change: G1 the logits (the language stream and the
+    # encoder's proposals), G2 grounding only, G3 the decoder's states (at
+    # init the box heads' last layers are zero, so the boxes are the
+    # references whatever the states)
+    changes = {"g1": ("detection", "pred_logits"), "g2": ("grounding", "pred_logits"),
+               "g3": ("detection", "hs")}
+    for name, opts in OPTION_GROUPS.items():
+        cfg = _with_options(r50, opts)
+        label = f"image_joint_r50 {name.upper()} ({', '.join(f'{k}={v}' for k, v in opts.items())})"
+        model, missing, unexpected = _options_model(cfg, base_sd)
+        n_new = sum(p.numel() for n, p in model.named_parameters() if n in set(missing))
+        print(f"[options] {label}: {sum(p.numel() for p in model.parameters()) / 1e6:.2f}M "
+              f"parameters (default {n_base / 1e6:.2f}M): {len(missing)} tensors "
+              f"({n_new / 1e6:.2f}M) from their seed-0 init, {len(unexpected)} of the "
+              "default's dropped")
+        got = one_request(model)
+        for task, out in got.items():
+            for k in ("pred_logits", "pred_boxes"):
+                if not torch.isfinite(out[k]).all():
+                    raise AssertionError(f"{label} {task}: {k} not finite")
+            if ("pred_boxious" in out) != cfg.transformer.use_iou_branch:
+                raise AssertionError(f"{label} {task}: pred_boxious with use_iou_branch "
+                                     f"{cfg.transformer.use_iou_branch}")
+        task, key = changes[name]
+        diff = (got[task][key].float().cpu() - ref[task][key]).abs().max().item()
+        if not diff > 0:
+            raise AssertionError(f"{label}: {task} {key} equal to the default config's")
+        print(f"[options] {label}: {task} {key} differ from the default config's on the same "
+              f"inputs and weights by up to {diff:.4g}; every output finite")
+        del got
+        stats = {}
+        tasks = ("rec",) if name == "g2" else ("detection",)
+        for task, n in phase_serving(cfg, label, tasks, False, model=model,
+                                     stats=stats).items():
+            launches[f"options_{name}_{task}"] = n
+        del model
+        torch.cuda.empty_cache()
+        launches[f"options_{name}_training"] = phase_training(
+            cfg, label, OPTIONS_TRAIN_STEPS, False,
+            task="grounding" if name == "g2" else "detection", stats=stats)
+        summary[name] = stats
+    del base_sd, ref
+    torch.cuda.empty_cache()
+
+    # the SOT frame step (task "grounding" with a template prompt)
+    video = video_joint_r50()
+    vbase = build_model(video, seed=0, template=True).eval()
+    H, W = SOT_HW
+    frames, fpad = _moving_frames(g, 2, H, W)
+    fsizes = torch.tensor([[H, W]], device=dev)
+    box0 = torch.tensor([[500.0, 300.0, 700.0, 460.0]], device=dev)
+    lang = make_template_encoder(vbase, video)(frames[0], box0)
+    want = make_sot_frame_step(vbase)(frames[1], fpad, fsizes, lang["hidden"], lang["masks"])
+    base_sd = _host_state(vbase)
+    del vbase
+    torch.cuda.empty_cache()
+    for name in ("g1", "g2"):
+        cfg = _with_options(video, OPTION_GROUPS[name])
+        model, _, _ = _options_model(cfg, base_sd, template=True)
+        lang = make_template_encoder(model, cfg)(frames[0], box0)
+        step = make_sot_frame_step(model)
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(frames[1], fpad, fsizes, lang["hidden"], lang["masks"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches[f"options_{name}_sot"] = {k: c.launches for k, c in counters.items()}
+        expect = {**dict.fromkeys(counters, 0),
+                  "ms_deform_attn_fwd": cfg.transformer.enc_layers + cfg.transformer.dec_layers}
+        if launches[f"options_{name}_sot"] != expect:
+            raise AssertionError(f"SOT {name}: launches {launches[f'options_{name}_sot']}")
+        with torch.inference_mode():
+            out = model(frames[1], fpad, fsizes, None, lang["masks"], task="grounding",
+                        lang_dict=lang, reid=False)
+        prob = out["pred_logits"].float().sigmoid()[..., 0]
+        if "pred_boxious" in out:
+            prob = (prob * out["pred_boxious"].float().sigmoid()[..., 0]).sqrt()
+        if ("pred_boxious" in out) != cfg.transformer.use_iou_branch:
+            raise AssertionError(f"SOT {name}: pred_boxious with use_iou_branch "
+                                 f"{cfg.transformer.use_iou_branch}")
+        score = res["score"].float()
+        if not (torch.isfinite(res["box_cxcywh"]).all() and 0 <= score.item() <= 1):
+            raise AssertionError(f"SOT {name}: box {res['box_cxcywh'].tolist()}, score "
+                                 f"{score.item()}")
+        # the same forward again; the other formula is far off: sigmoid of
+        # the IoU head's prior bias is 0.01
+        _check(f"SOT {name} score", score, prob.amax(-1), 1e-3)
+        moved = max((res[k].float() - want[k].float()).abs().max().item()
+                    for k in ("box_cxcywh", "score"))
+        if not moved > 0:
+            raise AssertionError(f"SOT {name}: the frame step's box and score equal the "
+                                 "default config's")
+        print(f"[options] SOT frame step, video_joint_r50 {name.upper()} at {H}x{W} "
+              f"(prompt {lang['hidden'].shape[1]} tokens): {ms:.1f} ms (the first call), "
+              f"score {score.item():.4f} = max of "
+              + ("sigmoid(cls)" if name == "g1" else "sqrt(sigmoid(cls) sigmoid(iou))")
+              + f", box and score differ from the default config's by up to {moved:.4g}; "
+              f"launches {launches[f'options_{name}_sot']}")
+        del model, out, step
+    del base_sd, frames, fpad, lang
+    torch.cuda.empty_cache()
+
+    # card (kernels) vs CPU (plain versions), fp32, a small model per group
+    for c in counters.values():
+        c.launches = 0
+    for name, opts in OPTION_GROUPS.items():
+        tasks = ("detection", "masks") if name == "g2" else ("detection",)
+        _reference_pair(_with_options(tiny_test_config(), opts), f"R50 {name.upper()}",
+                        tasks, (64, 96))
+    torch.cuda.synchronize()
+    launches["options_reference"] = {k: c.launches for k, c in counters.items()}
+
+    for name, stats in summary.items():
+        parts = [f"{task} median {st['median_ms'][0]:.1f} ms ({st['median_ms'][1]:.1f}-"
+                 f"{st['median_ms'][2]:.1f}), peak {st['peak_gib']:.2f} GiB"
+                 for task, st in stats.items()]
+        served = [p for p in launches if p.startswith(f"options_{name}_")
+                  and p.split("_")[-1] in ("detection", "rec")][0]
+        per_req = {k: v // N_REQUESTS for k, v in launches[served].items() if v}
+        per_step = {k: v // OPTIONS_TRAIN_STEPS
+                    for k, v in launches[f"options_{name}_training"].items() if v}
+        print(f"[options] {name.upper()} summary: " + "; ".join(parts)
+              + f"; launches per request {per_req}, per step {per_step}")
+    print(f"[options] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def _profile(fn, label):
     """`fn` once more under torch.profiler: its host time, the device's
     busy time and idle share over the span of its kernels (union of kernel
@@ -4856,6 +5127,7 @@ def main():
     video_tools, video_tools_checks = phase_video_tools()
     for name, r in video_tools_checks.items():
         rec[name].update(r)
+    options = phase_options()
     a = rec["rel_pos_flash_attn"]
     a.update(vith_rec)
     for r in (a, rec["rel_pos_flash_attn_bwd"]):
@@ -4885,6 +5157,7 @@ def main():
                    **{path: n[name] for path, n in cli.items()},
                    **{path: n[name] for path, n in protocol.items()},
                    **{path: n[name] for path, n in video_tools.items()},
+                   **{path: n[name] for path, n in options.items()},
                    "lab": lab[name], "reference": reference[name]}
         if sum(by_path.values()) == 0:
             raise AssertionError(f"kernel {name} was never launched by its path")

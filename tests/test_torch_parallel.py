@@ -24,9 +24,9 @@ import pytest
 import torch
 
 import uninext_tpu.models.detr as jdetr
-from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
-                                     dn_noise, one_torch_thread, parallel_step_rank,
-                                     shared_across_workers, tiny_vit_config)
+from tests.torch_port_common import (FakeMesh, bridge_sources, detection_inputs,
+                                     detection_targets, dn_noise, one_torch_thread,
+                                     parallel_step_rank, shared_across_workers, tiny_vit_config)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.train import TrainState, make_train_step
 from uninext_tpu.parallel import sharding as jsharding
@@ -82,14 +82,6 @@ def vit_tree():
     return cfg, jm, _random_tree(shapes), inputs, targets
 
 
-class _FakeMesh:
-    """A model group of k ranks seen from rank `r`, with no process group:
-    `shard_module` cuts without a collective."""
-
-    def __init__(self, k, r):
-        self.model_size, self.model_rank, self.model_group = k, r, None
-
-
 def test_param_pspec_matches_jax(vit_tree):
     """Every ViT and BERT parameter's JAX leaf is the one the bridge fills
     it from, and its PartitionSpec is JAX's `param_pspec` of that leaf;
@@ -131,7 +123,7 @@ def test_qkv_is_cut_by_heads(vit_tree):
     convert.load_jax_params(full, params)
     whole = dict(full.named_parameters())
     for r in range(k):
-        mesh = _FakeMesh(k, r)
+        mesh = FakeMesh(k, r)
         model = sharding.shard_module(build_model(cfg, "cpu", seed=1), mesh)
         convert.load_jax_params(model, params, mesh=mesh)
         name = "detr.detr.backbone.0.backbone.blocks.1.attn.qkv.weight"

@@ -21,10 +21,10 @@ import optax
 import pytest
 import torch
 
-from tests.torch_port_common import (boxinst_targets, bridge_sources, detection_inputs,
-                                     detection_targets, dn_noise, init_statistics_match,
-                                     jax_loss_and_grads, jax_train_init, one_torch_thread, perturb,
-                                     shared_across_workers)
+from tests.torch_port_common import (boxinst_targets, bridge_sources, class_token_map,
+                                     detection_inputs, detection_targets, dn_noise,
+                                     init_statistics_match, jax_loss_and_grads, jax_train_init,
+                                     one_torch_thread, perturb, shared_across_workers)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
@@ -88,13 +88,6 @@ def served(pair, tmp_path_factory, worker_id):
     return want, got
 
 
-def _class_token_map(C=5, T=16):
-    m = np.zeros((C, T), bool)
-    for c in range(C):
-        m[c, 1 + 2 * c: 2 + 2 * c + (c % 2)] = True     # 1 or 2 tokens each
-    return m
-
-
 def _close(got, want, rel, what):
     """Within `rel` of the tensor's largest magnitude."""
     want = np.asarray(want)
@@ -120,7 +113,7 @@ def test_r50_detection_matches_jax(served):
         assert got[key].shape == want[key].shape, key
         # fp32 through R50, BERT, 2 + 2 transformer layers and the heads
         _close(got[key], want[key], 1e-4, key)
-    cmap = _class_token_map()
+    cmap = class_token_map()
     jpost = jax.jit(lambda o: jax_post(o, cmap))(
         {k: want[k] for k in ("pred_logits", "pred_boxes", "pred_boxious")})
     with torch.inference_mode():
@@ -137,7 +130,7 @@ def test_r50_instance_masks_match_jax(pair, served):
     `predict_masks`."""
     _, inputs, _, jm, params, model = pair
     want, got = served[0]["detection"], served[1]["detection"]
-    cmap = _class_token_map()
+    cmap = class_token_map()
     jpost = jax.jit(lambda o: jax_post(o, cmap, max_inst=100))(
         {k: want[k] for k in ("pred_logits", "pred_boxes", "pred_boxious")})
     idx = np.asarray(jpost["query_idx"])

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.torch_port_common import (detection_inputs, one_torch_thread, perturb, tiny_vit_config,
-                                     tiny_vit_init)
+from tests.torch_port_common import (class_token_map, detection_inputs, one_torch_thread, perturb,
+                                     tiny_vit_config, tiny_vit_init)
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.models.detr import UninextDETR as JaxDETR
 from uninext_tpu.models.postprocess import postprocess_detection as jax_post
@@ -43,13 +43,6 @@ def pair(tmp_path_factory, worker_id):
     return cfg, inputs, jm, params, model
 
 
-def _class_token_map(C=5, T=16):
-    m = np.zeros((C, T), bool)
-    for c in range(C):
-        m[c, 1 + 2 * c: 2 + 2 * c + (c % 2)] = True     # 1 or 2 tokens each
-    return m
-
-
 def test_detection_forward_and_postprocess_match_jax(pair):
     cfg, inputs, jm, params, model = pair
     want = jax.jit(lambda p: jm.apply(p, *inputs))(params)
@@ -60,7 +53,7 @@ def test_detection_forward_and_postprocess_match_jax(pair):
         # fp32 through backbone, BERT, 2 + 2 transformer layers and heads
         np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                    atol=1e-4, err_msg=key)
-    cmap = _class_token_map()
+    cmap = class_token_map()
     jpost = jax.jit(lambda o: jax_post(o, cmap))(
         {k: want[k] for k in ("pred_logits", "pred_boxes", "pred_boxious")})
     with torch.inference_mode():

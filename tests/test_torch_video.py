@@ -27,8 +27,9 @@ import optax
 import pytest
 import torch
 
-from tests.torch_port_common import (bridge_sources, detection_inputs, detection_targets,
-                                     one_torch_thread, perturb, shared_across_workers)
+from tests.torch_port_common import (bridge_sources, class_token_map, detection_inputs,
+                                     detection_targets, one_torch_thread, perturb,
+                                     shared_across_workers)
 from uninext_tpu.engine import optimizer as joptim
 from uninext_tpu.engine.convert import convert_checkpoint
 from uninext_tpu.engine.train import loss_weights as jax_loss_weights
@@ -123,13 +124,6 @@ def _close(got, want, rel, what):
                                atol=rel * max(np.abs(want).max(), 1e-6), err_msg=what)
 
 
-def _class_token_map(C=5, T=16):
-    m = np.zeros((C, T), bool)
-    for c in range(C):
-        m[c, 1 + 2 * c: 2 + 2 * c + (c % 2)] = True
-    return m
-
-
 def test_reid_tree_fills_the_port_and_round_trips(pair):
     """The video-detection tree holds `reid_dec_{0,1}`,
     `reid_ref_point_head` and `reid_embed` and no `dn_resizer`; the bridge
@@ -194,7 +188,7 @@ def test_vis_frame_step_matches_jax(pair):
     scores) with their labels, and their boxes, scores, masks and
     embeddings within 1e-4 of each tensor's largest value."""
     cfg, inputs, *_, jm, params, model = pair
-    cmap = _class_token_map()
+    cmap = class_token_map()
     image, pad, sizes, ids, tmask = (x[:1] for x in inputs)
     with torch.inference_mode():
         out = model(*map(_t, (image, pad, sizes, ids, tmask)))

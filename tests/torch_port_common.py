@@ -98,6 +98,22 @@ def perturb(params, seed=1, scale=0.05):
     return jax.tree_util.tree_map_with_path(one, params)
 
 
+def class_token_map(C=5, T=16):
+    """(C, T) bool: class c's prompt tokens, 1 or 2 of them, from token 1."""
+    m = np.zeros((C, T), bool)
+    for c in range(C):
+        m[c, 1 + 2 * c: 2 + 2 * c + (c % 2)] = True     # 1 or 2 tokens each
+    return m
+
+
+class FakeMesh:
+    """A model group of k ranks seen from rank `r`, with no process group:
+    `parallel/sharding.py:shard_module` cuts without a collective."""
+
+    def __init__(self, k, r):
+        self.model_size, self.model_rank, self.model_group = k, r, None
+
+
 def detection_targets(seed=0, B=2, G=20, T=16, n=(3, 8)):
     """Synthetic targets padded to G: per image n[0]..n[1]-1 valid boxes
     (cxcywh inside the image), each with one or two positive prompt tokens
@@ -246,6 +262,9 @@ def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key,
     train=True)` for `task`, with the mask losses when `masks` (B, G, H/4,
     W/4) is given, or BoxInst's when `boxinst` (a dict of `box_bitmasks`,
     `color_similarity` and `step`) is, and the DN key pinned to `dn_key`.
+    The step compiles at XLA's backend optimisation level 0 (LLVM without
+    optimisation), which takes less compile time than the default and
+    gives these small steps' values within every caller's tolerance.
     Returns (total, losses, grads of params["params"])."""
     import jax
 
@@ -272,8 +291,9 @@ def jax_loss_and_grads(jm, params, inputs, targets, cfg, monkeypatch, dn_key,
                           rngs={"dn": jax.random.PRNGKey(0)})
         return weighted_total(losses, weights), losses
 
-    (total, losses), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
-        params["params"])
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(params["params"]).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    (total, losses), grads = step(params["params"])
     return total, losses, grads
 
 

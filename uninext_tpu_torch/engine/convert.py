@@ -24,6 +24,13 @@ Two places need care:
     `fpn1.0` in the reference; its bias must be four equal copies, which
     is what a ConvTranspose2d bias can hold.
 
+The transformer options of the reference follow the tree: its
+`transformer/lang_layer_{i}` (USE_ADDITIONAL_BERT) become the encoder's
+`lang_layers.{i}` (HF BERT names), a VLAlign `enc_class_embed`
+(STILL_CLS_FOR_ENCODER off) becomes `class_embed.{dec_layers}` as a
+VLAlign, and a tree without `iou_head_{i}` (USE_IOU_BRANCH off) fills no
+`iou_head`; the strict load then holds the model's config to the tree's.
+
 The DN label encoder `dn_resizer` (training only) becomes `detr.resizer.*`,
 as in the reference checkpoint. The reid head of the video configs becomes
 `detr.reid_embed_head.*`: `reid_dec_{i}` (decoder layers) and
@@ -209,15 +216,19 @@ def fill_bert(sd, key, lv, path):
     _norm(sd, key + "embeddings.LayerNorm.", lv, _j(path, "embeddings_ln"))
     i = 0
     while lv.has(_j(path, f"layer_{i}")):
-        lp, lk = _j(path, f"layer_{i}"), f"{key}encoder.layer.{i}."
-        for n in ("query", "key", "value"):
-            _dense(sd, f"{lk}attention.self.{n}.", lv, _j(lp, f"attention/{n}"))
-        _dense(sd, lk + "attention.output.dense.", lv, _j(lp, "attention/output"))
-        _norm(sd, lk + "attention.output.LayerNorm.", lv, _j(lp, "attention_ln"))
-        _dense(sd, lk + "intermediate.dense.", lv, _j(lp, "intermediate"))
-        _dense(sd, lk + "output.dense.", lv, _j(lp, "ffn_output"))
-        _norm(sd, lk + "output.LayerNorm.", lv, _j(lp, "output_ln"))
+        fill_bert_layer(sd, f"{key}encoder.layer.{i}.", lv, _j(path, f"layer_{i}"))
         i += 1
+
+
+def fill_bert_layer(sd, key, lv, path):
+    """One BERT layer (`models/bert.py:BertLayer`) with HF BertLayer names."""
+    for n in ("query", "key", "value"):
+        _dense(sd, f"{key}attention.self.{n}.", lv, _j(path, f"attention/{n}"))
+    _dense(sd, key + "attention.output.dense.", lv, _j(path, "attention/output"))
+    _norm(sd, key + "attention.output.LayerNorm.", lv, _j(path, "attention_ln"))
+    _dense(sd, key + "intermediate.dense.", lv, _j(path, "intermediate"))
+    _dense(sd, key + "output.dense.", lv, _j(path, "ffn_output"))
+    _norm(sd, key + "output.LayerNorm.", lv, _j(path, "output_ln"))
 
 
 def fill_msda(sd, key, lv, path):
@@ -286,6 +297,12 @@ def fill_transformer(sd, key, lv, path):
     while lv.has(_j(path, f"vl_layer_{i}")):
         fill_vl_fuse(sd, f"{key}encoder.vl_layers.{i}.", lv, _j(path, f"vl_layer_{i}"))
         i += 1
+    # USE_ADDITIONAL_BERT: `lang_layer_{i}` (a BERT layer) -> the reference
+    # encoder's `lang_layers.{i}` with HF BERT names
+    i = 0
+    while lv.has(_j(path, f"lang_layer_{i}")):
+        fill_bert_layer(sd, f"{key}encoder.lang_layers.{i}.", lv, _j(path, f"lang_layer_{i}"))
+        i += 1
     i = 0
     while lv.has(_j(path, f"decoder_layer_{i}")):
         fill_decoder_layer(sd, f"{key}decoder.layers.{i}.", lv,
@@ -301,14 +318,22 @@ def fill_vl_align(sd, key, lv, path):
 
 
 def fill_heads(sd, key, lv, path):
-    """class_embed.{i} (VLAlign) and .{dec} (the encoder's StillClassifier),
-    bbox_embed.{0..dec}, iou_head.{i}."""
+    """class_embed.{i} (VLAlign) and .{dec} (the encoder's head: a
+    StillClassifier, or a VLAlign when the tree's `enc_class_embed` is one,
+    STILL_CLS_FOR_ENCODER off), bbox_embed.{0..dec}, and iou_head.{i} when
+    the tree has the IoU branch (`iou_head_0`)."""
     dec = 0
+    iou = lv.has(_j(path, "iou_head_0"))
     while lv.has(_j(path, f"class_embed_{dec}")):
         fill_vl_align(sd, f"{key}class_embed.{dec}.", lv, _j(path, f"class_embed_{dec}"))
-        _dense(sd, f"{key}iou_head.{dec}.", lv, _j(path, f"iou_head_{dec}"))
+        if iou:
+            _dense(sd, f"{key}iou_head.{dec}.", lv, _j(path, f"iou_head_{dec}"))
         dec += 1
-    _dense(sd, f"{key}class_embed.{dec}.body.", lv, _j(path, "enc_class_embed/body"))
+    enc = _j(path, "enc_class_embed")
+    if lv.has(_j(enc, "body")):
+        _dense(sd, f"{key}class_embed.{dec}.body.", lv, _j(enc, "body"))
+    else:
+        fill_vl_align(sd, f"{key}class_embed.{dec}.", lv, enc)
     for i in range(dec + 1):
         _mlp(sd, f"{key}bbox_embed.{i}.", lv, _j(path, f"bbox_embed_{i}"))
 
@@ -451,6 +476,8 @@ _MODULE_PATHS = tuple((re.compile(p), r) for p, r in (
     (r"detr\.resizer\.(.*)", r"dn_resizer/\1"),
     (r"detr\.detr\.transformer\.encoder\.vl_layers\.(\d+)\.b_attn\.(.*)",
      r"transformer/vl_layer_\1/\2"),
+    (r"detr\.detr\.transformer\.encoder\.lang_layers\.(\d+)\.(.*)",
+     r"transformer/lang_layer_\1/\2"),
     (r"detr\.detr\.transformer\.encoder\.layers\.(\d+)\.(.*)",
      r"transformer/encoder_layer_\1/\2"),
     (r"detr\.detr\.transformer\.decoder\.layers\.(\d+)\.(.*)",
@@ -466,7 +493,9 @@ def jax_module_path(port_key: str) -> str:
     """The JAX module path a port parameter of `UninextDETR` is filled from,
     e.g. `transformer/vl_layer_0/attn/v_proj/weight` for
     `detr.detr.transformer.encoder.vl_layers.0.b_attn.attn.v_proj.weight`
-    (module names as the JAX tree's, the leaf as the port's), and the JAX
+    (module names as the JAX tree's, the leaf as the port's; the additional
+    BERT layers' `transformer/lang_layer_{i}/...` hold no "bert", so they
+    fall in the optimizer's "base" group, as in JAX), and the JAX
     leaf itself for the ResNets' and ConvNeXts' (`_resnet_leaf`,
     `_convnext_leaf`): the optimizer's
     `classify_param` keys on `/mean`, `/var`, `/stem` and `res2_block`, and

@@ -5,8 +5,9 @@ SOT, :671-960 VOS, :1293-1358 R-VOS):
     template: frame, box [, gt mask] -> `crop_template` ->
         `UninextDETR.encode_template` -> a pseudo-language prompt
     frame: `UninextDETR.forward` (task "grounding", that prompt) ->
-        sqrt(sigmoid(cls) * sigmoid(iou)) per query -> the argmax query's box
-        and score [-> its mask (`predict_masks`)]
+        sqrt(sigmoid(cls) * sigmoid(iou)) per query (sigmoid(cls) without
+        the IoU branch) -> the argmax query's box and score [-> its mask
+        (`predict_masks`)]
     R-VOS frame: the same with an expression's BERT features, the score
         optionally blended with the reid cosine to the previous frame's
         choice (`rvos_temporal_weight`, gated by `has_prev`).
@@ -60,15 +61,16 @@ def make_template_encoder(model: UninextDETR, cfg: UninextConfig) -> Callable:
 
 def _grounding_scores(model, image, img_mask, sizes, lang_hidden, lang_mask, reid):
     """The grounding forward with a prompt made elsewhere, and each query's
-    sqrt(sigmoid(cls) * sigmoid(iou)) (B, Q) fp32. The pooled prompt is the
-    masked mean (reference agg_lang_feat), which R-VOS's padded
-    expressions need."""
+    sqrt(sigmoid(cls) * sigmoid(iou)) (B, Q) fp32, or sigmoid(cls) alone
+    for heads without the IoU branch. The pooled prompt is the masked mean
+    (reference agg_lang_feat), which R-VOS's padded expressions need."""
     lang = {"hidden": lang_hidden, "masks": lang_mask,
             "aggregate": agg_lang_feat(lang_hidden, lang_mask)}
     out = model(image, img_mask, sizes, None, lang_mask, task="grounding",
                 lang_dict=lang, reid=reid)
     prob = out["pred_logits"].float().sigmoid()[..., 0]
-    prob = (prob * out["pred_boxious"].float().sigmoid()[..., 0]).sqrt()
+    if "pred_boxious" in out:
+        prob = (prob * out["pred_boxious"].float().sigmoid()[..., 0]).sqrt()
     return out, prob
 
 

@@ -10,7 +10,8 @@ prompt (`encode_template`) and the SOT training losses
 
     (images, img_mask, prompt tokens) -> backbone -> input projections ->
     BERT prompt -> VL-fused deformable transformer (two-stage) ->
-    per-layer VL alignment logits, refined boxes and IoU logits
+    per-layer VL alignment logits, refined boxes and (with the IoU branch)
+    IoU logits
     [-> masks: the dynamic mask head on the encoder memory, for the queries
         a caller selected (`models/postprocess.py`)]
     [-> reid: a small deformable decoder over the encoder memory, then an
@@ -224,17 +225,18 @@ class DeformableDETR(nn.Module):
         self.input_proj = nn.ModuleList(projs)
         self.transformer = UninextTransformer(t, cfg.language, dtype=dtype)
         lang_dim = cfg.language.hidden_dim
-        if not t.still_cls_for_encoder:
-            raise NotImplementedError("encoder VL-alignment head")
+        # the encoder's proposal head (class_embed[dec_layers]): binary
+        # objectness, or with still_cls_for_encoder False a VLAlign against
+        # the pooled prompt (`uninext_tpu/models/detr.py:262-265`)
         self.class_embed = nn.ModuleList(
             [VLAlign(t, lang_dim) for _ in range(t.dec_layers)]
-            + [StillClassifier(t.d_model, t.prior_prob)])
+            + [StillClassifier(t.d_model, t.prior_prob) if t.still_cls_for_encoder
+               else VLAlign(t, lang_dim)])
         self.bbox_embed = nn.ModuleList(
             MLP(t.d_model, t.d_model, 4, 3) for _ in range(t.dec_layers + 1))
-        if not t.use_iou_branch:
-            raise NotImplementedError("heads without the IoU branch")
-        self.iou_head = nn.ModuleList(
-            Linear(t.d_model, 1) for _ in range(t.dec_layers))
+        if t.use_iou_branch:
+            self.iou_head = nn.ModuleList(
+                Linear(t.d_model, 1) for _ in range(t.dec_layers))
         self.prior_prob = t.prior_prob
         if template and cfg.sot.extra_backbone_for_template:
             self.ref_backbone = nn.ModuleList([_Nest("backbone", build_trunk(cfg, 4, dtype))])
@@ -249,7 +251,7 @@ class DeformableDETR(nn.Module):
             for mlp in self.bbox_embed:
                 nn.init.zeros_(mlp.layers[-1].weight)
             bias = -math.log((1 - self.prior_prob) / self.prior_prob)
-            for head in self.iou_head:
+            for head in getattr(self, "iou_head", ()):
                 nn.init.constant_(head.bias, bias)
 
 
@@ -410,9 +412,10 @@ class UninextDETR(nn.Module):
     def _decode_outputs(self, trans, lvl: int, task: str = "detection",
                         lang_mask: Optional[torch.Tensor] = None
                         ) -> Dict[str, torch.Tensor]:
-        """Alignment logits, refined boxes and IoU logits of decoder layer
-        `lvl`. Detection aligns each query with every prompt token (B, Q, T);
-        grounding with the pooled expression (B, Q, 1)."""
+        """Alignment logits, refined boxes and IoU logits (with the IoU
+        branch) of decoder layer `lvl`. Detection aligns each query with
+        every prompt token (B, Q, T); grounding with the pooled expression
+        (B, Q, 1)."""
         base = (trans["init_reference"] if lvl == 0
                 else trans["inter_references"][lvl - 1])
         hs = trans["hs"][lvl]
@@ -420,10 +423,12 @@ class UninextDETR(nn.Module):
         if task == "grounding":
             lang = agg_lang_feat(lang, lang_mask)[:, None]
         delta = self.core.bbox_embed[lvl](hs).float()
-        return {"pred_logits": self.core.class_embed[lvl](hs, lang),
-                "pred_boxes": (delta + inverse_sigmoid(base)).sigmoid(),
-                "pred_boxious": self.core.iou_head[lvl](hs.float()),
-                "hs": hs, "base_reference": base}
+        out = {"pred_logits": self.core.class_embed[lvl](hs, lang),
+               "pred_boxes": (delta + inverse_sigmoid(base)).sigmoid(),
+               "hs": hs, "base_reference": base}
+        if self.cfg.transformer.use_iou_branch:
+            out["pred_boxious"] = self.core.iou_head[lvl](hs.float())
+        return out
 
     def forward(self, images: torch.Tensor, img_mask: torch.Tensor,
                 image_sizes: torch.Tensor, text_ids: Optional[torch.Tensor],
@@ -433,14 +438,14 @@ class UninextDETR(nn.Module):
         """Inference for `task` "detection" (a category prompt) or
         "grounding" (an expression). `lang_dict` (the output of
         `encode_text`) lets a server encode its category prompt once and
-        reuse it. Returns the last decoder layer's logits, boxes and IoU
-        logits with what `predict_masks` takes: `hs`, `base_reference`, the
-        encoder `memory` and the level shapes of this input,
-        `spatial_shapes`. The other layers' heads feed only the losses. With
-        `use_reid`, `pred_embeds` (B, Q, d_model) fp32: the reid embedding
-        of every query (`compute_reid`), unless `reid` is False (a caller
-        that reads no embedding: the SOT and VOS frame steps, whose JAX
-        counterparts XLA prunes of the reid head)."""
+        reuse it. Returns the last decoder layer's logits, boxes and (with
+        `use_iou_branch`) IoU logits with what `predict_masks` takes: `hs`,
+        `base_reference`, the encoder `memory` and the level shapes of this
+        input, `spatial_shapes`. The other layers' heads feed only the
+        losses. With `use_reid`, `pred_embeds` (B, Q, d_model) fp32: the
+        reid embedding of every query (`compute_reid`), unless `reid` is
+        False (a caller that reads no embedding: the SOT and VOS frame
+        steps, whose JAX counterparts XLA prunes of the reid head)."""
         if task not in ("detection", "grounding"):
             raise NotImplementedError(f"task {task!r} is not ported yet")
         t = self.cfg.transformer
@@ -452,7 +457,7 @@ class UninextDETR(nn.Module):
             srcs, masks, poses, lang["hidden"], lang["masks"],
             enc_class_head=core.class_embed[t.dec_layers],
             enc_bbox_head=core.bbox_embed[t.dec_layers],
-            bbox_heads=core.bbox_embed[:t.dec_layers])
+            bbox_heads=core.bbox_embed[:t.dec_layers], task=task)
         out = self._decode_outputs(trans, t.dec_layers - 1, task, lang["masks"])
         out["memory"] = trans["memory"]
         out["spatial_shapes"] = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -566,14 +571,12 @@ class UninextDETR(nn.Module):
             enc_bbox_head=core.bbox_embed[t.dec_layers],
             bbox_heads=core.bbox_embed[:t.dec_layers],
             dn_tgt=dn_tgt, dn_refpoints_unact=dn_ref, attn_mask=attn_mask,
-            remat_encoder=c.remat_encoder)
+            remat_encoder=c.remat_encoder, task=task)
         pad = 0 if dn_tgt is None else dn_tgt.shape[1]
         layers = []
         for lvl in range(t.dec_layers):
             out = self._decode_outputs(trans, lvl, task, lang["masks"])
-            layer = {k: out[k][:, pad:] for k in
-                     ("pred_logits", "pred_boxes", "pred_boxious", "hs",
-                      "base_reference")}
+            layer = {k: v[:, pad:] for k, v in out.items()}
             if pad:
                 layer["dn_logits"] = out["pred_logits"][:, :pad]
                 layer["dn_boxes"] = out["pred_boxes"][:, :pad]
@@ -665,7 +668,7 @@ class UninextDETR(nn.Module):
         heads = dict(enc_class_head=core.class_embed[t.dec_layers],
                      enc_bbox_head=core.bbox_embed[t.dec_layers],
                      bbox_heads=core.bbox_embed[:t.dec_layers],
-                     remat_encoder=c.remat_encoder)
+                     remat_encoder=c.remat_encoder, task=task)
         trans_k, trans_r = (
             core.transformer([x[sl] for x in srcs], [m[sl] for m in masks],
                              [p[sl] for p in poses], lang["hidden"], lang["masks"],

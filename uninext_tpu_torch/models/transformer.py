@@ -5,12 +5,25 @@ self-attention mask, and activation checkpointing of the encoder layers
 (the JAX package's `remat_encoder`).
 
 The encoder is a plain loop of layers (VLFuse before the first
-`num_vl_layers`); the JAX package's scan-stacked encoder was an XLA compile
-measure and its parameters are unstacked by the weight bridge
-(`engine/convert.py`). Parameter names follow the reference
-(`deformable_transformer_dino.py`): level_embed, tgt_embed,
-encoder.{layers,vl_layers}, decoder.{layers,ref_point_head}, enc_output,
-enc_output_norm, resizer.
+`num_vl_layers`; with `use_additional_bert`, MODEL.USE_ADDITIONAL_BERT, a
+clamped BERT layer on the language stream after every encoder layer); the
+JAX package's scan-stacked encoder was an XLA compile measure and its
+parameters are unstacked by the weight bridge (`engine/convert.py`).
+Parameter names follow the reference (`deformable_transformer_dino.py`,
+`DeformableTransformerEncoderVL` of `deformable_transformer.py:299-317`):
+level_embed, tgt_embed, encoder.{layers,vl_layers,lang_layers},
+decoder.{layers,ref_point_head}, enc_output, enc_output_norm, resizer.
+
+The options of the decoder's target and references, as the JAX package
+(`uninext_tpu/models/transformer.py:292-321`):
+  * `decouple_tgt` (MODEL.DECOUPLE_TGT): the learnt target embedding, with
+    the pooled language feature `ref_feat` riding along at weight 0; off,
+    every query's target (the DN queries' too) is `ref_feat`;
+  * `still_tgt_for_both` (MODEL.STILL_TGT_FOR_BOTH): off, grounding's
+    target is `ref_feat` (+ 0 x the learnt one), detection's stays learnt;
+  * `look_forward_twice` (DDETRS.LOOK_FORWARD_TWICE): the references each
+    layer hands on keep the gradient of its box head; off, they are the
+    detached ones (the forward values are the same).
 
 Flax LayerNorm's epsilon is 1e-6 where torch defaults to 1e-5; every norm
 here sets it explicitly.
@@ -27,6 +40,7 @@ from ..config import LanguageConfig, TransformerConfig
 
 from ..utils.misc import (agg_lang_feat, checkpointed, inverse_sigmoid,
                           stable_topk_indices)
+from .bert import BertLayer
 from .layers import (MLP, FeatureResizer, LayerNorm, Linear, MSDeformAttn,
                      MultiHeadAttention, get_sine_pos_embed)
 from .vl_fusion import VLFuse
@@ -141,6 +155,11 @@ class _Encoder(nn.Module):
                                     for _ in range(c.enc_layers))
         n_vl = min(c.num_vl_layers, c.enc_layers) if c.use_early_fusion else 0
         self.vl_layers = nn.ModuleList(VLFuse(c, lcfg, dtype) for _ in range(n_vl))
+        if c.use_additional_bert:
+            # replicated under tensor parallelism, as JAX's `lang_layer_{i}`
+            # (no "bert" root): `shard_module` leaves their model_group unset
+            self.lang_layers = nn.ModuleList(BertLayer(lcfg, dtype)
+                                             for _ in range(c.enc_layers))
 
 
 class _Decoder(nn.Module):
@@ -161,11 +180,10 @@ class UninextTransformer(nn.Module):
     def __init__(self, c: TransformerConfig, lcfg: LanguageConfig,
                  dtype=torch.float32):
         super().__init__()
-        if (c.use_additional_bert or not c.two_stage or not c.decouple_tgt
-                or not c.still_tgt_for_both or not c.look_forward_twice):
+        if not c.two_stage:
             raise NotImplementedError(
-                "the port runs the two-stage transformer with a decoupled "
-                "still target, look-forward-twice and no USE_ADDITIONAL_BERT")
+                "the one-stage transformer (two_stage=False): the JAX package "
+                "has no such path either")
         self.cfg = c
         self.compute_dtype = dtype
         self.level_embed = nn.Parameter(torch.empty(c.num_feature_levels, c.d_model))
@@ -188,12 +206,16 @@ class UninextTransformer(nn.Module):
                 dn_tgt: Optional[torch.Tensor] = None,
                 dn_refpoints_unact: Optional[torch.Tensor] = None,
                 attn_mask: Optional[torch.Tensor] = None,
-                remat_encoder: bool = False) -> Dict[str, torch.Tensor]:
+                remat_encoder: bool = False,
+                task: str = "detection") -> Dict[str, torch.Tensor]:
         """srcs/masks/pos_embeds per level (B, H, W, C) / (B, H, W) True=pad /
         (B, H, W, C); lang_hidden (B, T, C_l); lang_mask (B, T) 1=valid.
         Training: dn_tgt (B, Ndn, C) and dn_refpoints_unact (B, Ndn, 4) go
         ahead of the matching queries, `attn_mask` (Ndn+Q, Ndn+Q) True =
-        blocked; `remat_encoder` checkpoints each encoder layer."""
+        blocked; `remat_encoder` checkpoints each encoder layer (the
+        additional BERT layers are not checkpointed, as in JAX). `task`
+        ("detection" or "grounding") picks the target under
+        `still_tgt_for_both=False`."""
         c = self.cfg
         B = srcs[0].shape[0]
         spatial_shapes = tuple((s.shape[1], s.shape[2]) for s in srcs)
@@ -206,6 +228,12 @@ class UninextTransformer(nn.Module):
 
         enc_ref = encoder_reference_points(spatial_shapes, valid_ratios)
         visual = src_flatten
+        lang_layers = getattr(self.encoder, "lang_layers", None)
+        if lang_layers is not None:
+            dt = self.compute_dtype
+            lang_bias = torch.where(lang_mask[:, None, None, :] > 0,
+                                    torch.zeros((), dtype=dt, device=lang_mask.device),
+                                    torch.tensor(-1e9, dtype=dt, device=lang_mask.device))
         for i, layer in enumerate(self.encoder.layers):
             if i < len(self.encoder.vl_layers):
                 visual, lang_hidden = self.encoder.vl_layers[i](
@@ -213,6 +241,8 @@ class UninextTransformer(nn.Module):
             args = (visual, pos_flatten, enc_ref, spatial_shapes, mask_flatten)
             visual = (checkpointed(layer, *args)
                       if remat_encoder and torch.is_grad_enabled() else layer(*args))
+            if lang_layers is not None:
+                lang_hidden = lang_layers[i](lang_hidden.to(self.compute_dtype), lang_bias)
         memory = visual
 
         lang_pool = agg_lang_feat(lang_hidden, lang_mask)
@@ -240,9 +270,15 @@ class UninextTransformer(nn.Module):
         tgt = self.tgt_embed.weight[None].expand(B, -1, -1)
         if dn_tgt is not None:
             tgt = torch.cat([dn_tgt, tgt], 1)
-        # decoupled target, still tgt for both tasks: ref_feat rides along
-        # with zero weight (reference :243-255)
-        tgt = (tgt + 0.0 * ref_feat).to(self.compute_dtype)
+        # the target options (reference :243-255); the coupled target
+        # replaces the DN rows too, as in JAX
+        if not c.decouple_tgt:
+            tgt = ref_feat.expand(-1, tgt.shape[1], -1)
+        elif c.still_tgt_for_both or task == "detection":
+            tgt = tgt + 0.0 * ref_feat
+        elif task == "grounding":
+            tgt = ref_feat + 0.0 * tgt
+        tgt = tgt.to(self.compute_dtype)
 
         intermediate, intermediate_refs = [], []
         vr2 = torch.cat([valid_ratios] * 2, -1)[:, None]
@@ -257,7 +293,7 @@ class UninextTransformer(nn.Module):
             new_ref = (delta + inverse_sigmoid(reference_points)).sigmoid()
             reference_points = new_ref.detach()
             intermediate.append(tgt)
-            intermediate_refs.append(new_ref)   # look-forward-twice
+            intermediate_refs.append(new_ref if c.look_forward_twice else reference_points)
 
         return {
             "hs": torch.stack(intermediate),

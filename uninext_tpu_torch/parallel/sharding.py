@@ -9,8 +9,8 @@ the JAX package's module and leaf names):
       query, key, value, intermediate (BERT)
   row-parallel (the input features are cut): proj, mlp2 (ViT);
       attention output, ffn_output (BERT)
-  everything else (convolutions, norms, embeddings, the DETR transformer)
-  is replicated.
+  everything else (convolutions, norms, embeddings, the DETR transformer,
+  USE_ADDITIONAL_BERT's BERT layers inside it) is replicated.
 
 `shard_module` keeps each rank's shard of those `Linear`s, wires the
 modules to the model group (`copy_to_model` before a column-parallel
@@ -59,15 +59,17 @@ _JAX_NAMES = tuple((re.compile(p), r) for p, r in (
     (r"/fpn1/0/", r"/up_res3/"),
 ))
 _NORMS = re.compile(r"/(norm[12]|attention_ln|output_ln|embeddings_ln)/weight$")
+# USE_ADDITIONAL_BERT's layers: BERT names, but outside TP_ROOTS (replicated)
+_LANG_LAYER = re.compile(r"transformer/lang_layer_\d+/")
 
 
 def jax_leaf(port_key: str) -> str:
-    """The JAX leaf of a port parameter in the towers, e.g.
-    `backbone/block_3/attn/qkv/kernel` for
-    `detr.detr.backbone.0.backbone.blocks.3.attn.qkv.weight`; outside them
+    """The JAX leaf of a port parameter in the towers or in the transformer's
+    additional BERT layers, e.g. `backbone/block_3/attn/qkv/kernel` for
+    `detr.detr.backbone.0.backbone.blocks.3.attn.qkv.weight`; elsewhere
     `convert.jax_module_path` (whose leaf names are the port's)."""
     path = convert.jax_module_path(port_key)
-    if path.split("/")[0] not in TP_ROOTS:
+    if path.split("/")[0] not in TP_ROOTS and not _LANG_LAYER.match(path):
         return path
     for pattern, repl in _JAX_NAMES:
         path = pattern.sub(repl, path)
